@@ -1,0 +1,322 @@
+"""Deep-Compression AutoEncoder (DCAE) for ERA5 in PyTorch.
+
+The port of ``ladcast_tpu/models/dcae.py`` (the reference
+``AutoencoderDC`` at the shipped DC_AE_84_pretrain.yaml config): 89 input
+channels (84 dynamic + 5 static), an 84-channel latent, 4 stages
+[ResBlock, ResBlock, EfficientViTBlock, EfficientViTBlock] of widths
+(252, 504, 504, 1008), pixel (un)shuffle resampling with channel-average /
+repeat shortcuts, and spherical-boundary convolutions throughout.
+
+Activations are NHWC, as in the JAX package; convolutions run on the
+channels-last NCHW view of the same storage (``ops.sphere``). Parameters
+keep the reference names and torch layouts: OIHW convs, 1x1 ``Conv2d``s
+in GLUMBConv (``conv_inverted``, ``conv_point``, applied as Dense over
+channels) and the grouped 1x1 ``proj_out`` of the Sana multiscale
+projection.
+
+The Sana linear attention keeps the reference's channel regrouping: the
+post-projection reshape takes contiguous 3*head_dim channel blocks as
+(query, key, value) whatever their projection role. The optional
+timestep conditioning (``temb_channels``) is not ported; no shipped config
+sets it.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ladcast_torch.config import DCAEConfig
+from ladcast_torch.models.layers import (
+    Affine,
+    Dense,
+    build_module,
+    dense,
+    init_flax_defaults_,
+)
+from ladcast_torch.ops.norms import rms_norm
+from ladcast_torch.ops.pixel_shuffle import pixel_shuffle, pixel_unshuffle
+from ladcast_torch.ops.sphere import sphere_conv2d
+
+
+class SphereConv(nn.Conv2d):
+    """Spherical conv layer: an OIHW kernel (+ optional bias) applied by
+    ``sphere_conv2d`` to NHWC activations."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 3, bias: bool = True, groups: int = 1):
+        super().__init__(in_channels, out_channels, kernel_size,
+                         groups=groups, bias=bias)
+
+    def forward(self, x):
+        return sphere_conv2d(
+            x, self.weight.to(x.dtype),
+            None if self.bias is None else self.bias.to(x.dtype),
+            groups=self.groups)
+
+
+class Conv1x1(nn.Conv2d):
+    """A 1x1 ``Conv2d`` (reference layout) applied as Dense over channels."""
+
+    def __init__(self, in_channels: int, out_channels: int, bias: bool = True):
+        super().__init__(in_channels, out_channels, 1, bias=bias)
+
+    def forward(self, x):
+        return dense(x, self.weight.flatten(1), self.bias)
+
+
+class RMSNormLayer(Affine):
+    def __init__(self, dim: int, eps: float):
+        super().__init__(dim, bias=True)
+        self.eps = eps
+
+    def forward(self, x):
+        return rms_norm(x, self.weight, self.eps, self.bias)
+
+
+class ResBlock(nn.Module):
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv1 = SphereConv(channels, channels)
+        self.conv2 = SphereConv(channels, channels, bias=False)
+        self.norm = RMSNormLayer(channels, 1e-5)
+
+    def forward(self, x):
+        h = self.conv2(F.silu(self.conv1(x)))
+        return self.norm(h) + x
+
+
+class GLUMBConv(nn.Module):
+    """Gated inverted-bottleneck conv."""
+
+    def __init__(self, channels: int, expand_ratio: float = 4.0):
+        super().__init__()
+        hidden = int(expand_ratio * channels)
+        self.conv_inverted = Conv1x1(channels, 2 * hidden)
+        self.conv_depth = SphereConv(2 * hidden, 2 * hidden, groups=2 * hidden)
+        self.conv_point = Conv1x1(hidden, channels, bias=False)
+        self.norm = RMSNormLayer(channels, 1e-7)
+
+    def forward(self, x):
+        h = self.conv_depth(F.silu(self.conv_inverted(x)))
+        h, gate = h.chunk(2, dim=-1)
+        h = self.conv_point(h * F.silu(gate))
+        return self.norm(h) + x
+
+
+class SanaMultiscaleProjection(nn.Module):
+    """Depthwise sphere conv + grouped 1x1 with 3*heads groups."""
+
+    def __init__(self, channels: int, num_heads: int, kernel_size: int):
+        super().__init__()
+        self.groups = 3 * num_heads
+        self.proj_in = SphereConv(channels, channels, kernel_size,
+                                  bias=False, groups=channels)
+        self.proj_out = nn.Conv2d(channels, channels, 1, groups=self.groups,
+                                  bias=False)
+        # flax counts the (g, gs, gs) kernel's fan-in as g * gs
+        self.proj_out.flax_fan_in = channels
+
+    def forward(self, qkv):
+        h = self.proj_in(qkv)
+        g = self.groups
+        w = self.proj_out.weight.to(h.dtype).reshape(g, -1, h.shape[-1] // g)
+        out = torch.einsum("...gi,goi->...go", h.unflatten(-1, (g, -1)), w)
+        return out.flatten(-2)
+
+
+class SanaMultiscaleLinearAttention(nn.Module):
+    """ReLU linear attention over spatial tokens with the +1-pad
+    normalization, in fp32, residual connected."""
+
+    def __init__(self, channels: int, attention_head_dim: int,
+                 kernel_sizes: Tuple[int, ...], eps: float = 1e-15):
+        super().__init__()
+        self.head_dim = attention_head_dim
+        self.eps = eps
+        num_heads = channels // attention_head_dim
+        inner = num_heads * attention_head_dim
+        self.to_q = Dense(channels, inner, bias=False)
+        self.to_k = Dense(channels, inner, bias=False)
+        self.to_v = Dense(channels, inner, bias=False)
+        self.to_qkv_multiscale = nn.ModuleList(
+            [SanaMultiscaleProjection(3 * inner, num_heads, ks)
+             for ks in kernel_sizes])
+        self.to_out = Dense(inner * (1 + len(kernel_sizes)), channels, bias=False)
+        self.norm_out = RMSNormLayer(channels, 1e-5)
+
+    def forward(self, x):
+        B, H, W, C = x.shape
+        hd = self.head_dim
+        qkv = torch.cat([self.to_q(x), self.to_k(x), self.to_v(x)], dim=-1)
+        full = torch.cat([qkv] + [m(qkv) for m in self.to_qkv_multiscale],
+                         dim=-1)
+        G = full.shape[-1] // (3 * hd)
+        t = full.reshape(B, H * W, G, 3 * hd).float()
+        qg = F.relu(t[..., :hd])
+        kg = F.relu(t[..., hd:2 * hd])
+        v_pad = F.pad(t[..., 2 * hd:], (0, 1), value=1.0)  # (B, N, G, hd+1)
+        scores = torch.einsum("bngi,bngj->bgij", v_pad, kg)
+        out = torch.einsum("bgij,bngj->bngi", scores, qg)
+        out = out[..., :hd] / (out[..., hd:] + self.eps)
+        out = out.to(x.dtype).reshape(B, H, W, G * hd)
+        return self.norm_out(self.to_out(out)) + x
+
+
+class EfficientViTBlock(nn.Module):
+    def __init__(self, channels: int, attention_head_dim: int,
+                 qkv_multiscales: Tuple[int, ...]):
+        super().__init__()
+        self.attn = SanaMultiscaleLinearAttention(channels, attention_head_dim,
+                                                  qkv_multiscales)
+        self.conv_out = GLUMBConv(channels)
+
+    def forward(self, x):
+        return self.conv_out(self.attn(x))
+
+
+class DCDownBlock(nn.Module):
+    """Pixel-unshuffle downsample with a channel-mean shortcut."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.out_channels = out_channels
+        self.conv = SphereConv(in_channels, out_channels // 4)
+
+    def forward(self, x):
+        h = pixel_unshuffle(self.conv(x), 2)
+        y = pixel_unshuffle(x, 2)
+        return h + y.unflatten(-1, (self.out_channels, -1)).mean(-1)
+
+
+class DCUpBlock(nn.Module):
+    """Pixel-shuffle upsample with a repeat shortcut."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.repeats = out_channels * 4 // in_channels
+        self.conv = SphereConv(in_channels, out_channels * 4)
+
+    def forward(self, x):
+        h = pixel_shuffle(self.conv(x), 2)
+        y = pixel_shuffle(x.repeat_interleave(self.repeats, dim=-1), 2)
+        return h + y
+
+
+def _make_block(block_type, channels, attention_head_dim, qkv_multiscales):
+    if block_type == "ResBlock":
+        return ResBlock(channels)
+    if block_type == "EfficientViTBlock":
+        return EfficientViTBlock(channels, attention_head_dim, qkv_multiscales)
+    raise ValueError(f"unsupported block type {block_type}")
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg: DCAEConfig):
+        super().__init__()
+        self.cfg = cfg
+        widths = cfg.encoder_block_out_channels
+        if cfg.encoder_layers_per_block[0] <= 0:
+            raise ValueError("the first encoder stage needs a block")
+        self.conv_in = SphereConv(cfg.in_channels, widths[0])
+        blocks = []
+        for i, (width, n_layers) in enumerate(
+                zip(widths, cfg.encoder_layers_per_block)):
+            blocks += [_make_block(cfg.encoder_block_types[i], width,
+                                   cfg.attention_head_dim,
+                                   cfg.encoder_qkv_multiscales[i])
+                       for _ in range(n_layers)]
+            if i < len(widths) - 1 and n_layers > 0:
+                blocks.append(DCDownBlock(width, widths[i + 1]))
+        self.down_blocks = nn.ModuleList(blocks)
+        self.conv_out = SphereConv(widths[-1], cfg.latent_channels)
+
+    def forward(self, x):
+        h = self.conv_in(x)
+        for block in self.down_blocks:
+            h = block(h)
+        z = self.conv_out(h)
+        if not self.cfg.encoder_out_shortcut:
+            return z
+        return z + h.unflatten(-1, (self.cfg.latent_channels, -1)).mean(-1)
+
+
+_ACTS = {"relu": F.relu, "silu": F.silu, "relu6": F.relu6,
+         "gelu": functools.partial(F.gelu, approximate="tanh"),  # flax's gelu
+         "identity": lambda x: x}
+
+
+class Decoder(nn.Module):
+    def __init__(self, cfg: DCAEConfig):
+        super().__init__()
+        self.cfg = cfg
+        widths = cfg.decoder_block_out_channels
+        n_stages = len(widths)
+        if cfg.decoder_layers_per_block[0] <= 0:
+            raise ValueError("the first decoder stage needs a block")
+        self.conv_in = SphereConv(cfg.latent_channels, widths[-1])
+        blocks = []
+        for i in reversed(range(n_stages)):
+            n_layers = cfg.decoder_layers_per_block[i]
+            if i < n_stages - 1 and n_layers > 0:
+                blocks.append(DCUpBlock(widths[i + 1], widths[i]))
+            blocks += [_make_block(cfg.decoder_block_types[i], widths[i],
+                                   cfg.attention_head_dim,
+                                   cfg.decoder_qkv_multiscales[i])
+                       for _ in range(n_layers)]
+        self.up_blocks = nn.ModuleList(blocks)
+        self.norm_out = RMSNormLayer(widths[0], 1e-7)
+        self.conv_out = SphereConv(widths[0], cfg.out_channels)
+        self.act = _ACTS[cfg.decoder_conv_act_fn]
+
+    def forward(self, z):
+        h = self.conv_in(z)
+        if self.cfg.decoder_in_shortcut:
+            h = h + z.repeat_interleave(h.shape[-1] // z.shape[-1], dim=-1)
+        for block in self.up_blocks:
+            h = block(h)
+        return self.conv_out(self.act(self.norm_out(h)))
+
+
+class AutoencoderDC(nn.Module):
+    """Top-level AE. Public layout is NHWC: ``encode`` appends the static
+    channels, ``decode`` strips them unless ``return_static``."""
+
+    def __init__(self, cfg: DCAEConfig):
+        super().__init__()
+        if cfg.temb_channels:
+            raise NotImplementedError(
+                "DCAE timestep conditioning (temb_channels) is not ported")
+        self.cfg = cfg
+        self.encoder = Encoder(cfg)
+        self.decoder = Decoder(cfg)
+        if self.encoder.conv_in.weight.device.type != "meta":
+            init_flax_defaults_(self)
+
+    def encode(self, x, static_conditioning=None):
+        if static_conditioning is not None:
+            if static_conditioning.dim() == 3:
+                static_conditioning = static_conditioning[None].expand(
+                    x.shape[0], *static_conditioning.shape)
+            x = torch.cat([x, static_conditioning.to(x.dtype)], dim=-1)
+        return self.encoder(x)
+
+    def decode(self, z, return_static: bool = False):
+        y = self.decoder(z)
+        if not return_static and self.cfg.static_channels:
+            y = y[..., : -self.cfg.static_channels]
+        return y
+
+    def forward(self, x, static_conditioning=None, return_static: bool = False):
+        return self.decode(self.encode(x, static_conditioning), return_static)
+
+
+def build_dcae(cfg: DCAEConfig, device="cuda",
+               dtype: torch.dtype = torch.float32, seed: int = 0) -> AutoencoderDC:
+    """A seeded DCAE with flax-default weights on ``device`` (CUDA unless
+    the caller asks for the CPU)."""
+    return build_module(lambda: AutoencoderDC(cfg), device, dtype, seed)

@@ -1,0 +1,119 @@
+"""The port's sphere convs, pixel (un)shuffle and DCAE vs the JAX package,
+in fp32 on the CPU."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ladcast_torch import config as t_config
+from ladcast_torch.models.dcae import AutoencoderDC as TorchAE
+from ladcast_torch.models.weight_import import state_dict_from_flax
+from ladcast_torch.ops import pixel_shuffle as t_ps
+from ladcast_torch.ops import sphere as t_sphere
+from ladcast_tpu import config as j_config
+from ladcast_tpu.models.dcae import AutoencoderDC as JaxAE
+from ladcast_tpu.models.weight_import import export_reference_state_dict
+from ladcast_tpu.ops import pixel_shuffle as j_ps
+from ladcast_tpu.ops import sphere as j_sphere
+
+TINY = dict(in_channels=9, out_channels=9, latent_channels=4,
+            attention_head_dim=4,
+            encoder_block_out_channels=(8, 16, 16, 32),
+            decoder_block_out_channels=(8, 16, 16, 32),
+            encoder_layers_per_block=(1, 1, 1, 1),
+            decoder_layers_per_block=(1, 1, 1, 1),
+            static_channels=1)
+
+
+@pytest.mark.parametrize("k,cin,cout,groups", [(3, 5, 7, 1), (5, 6, 6, 6),
+                                               (3, 6, 6, 6)])
+def test_sphere_conv2d_matches_jax(k, cin, cout, groups):
+    rng = np.random.RandomState(k + groups)
+    x = rng.randn(2, 8, 12, cin).astype(np.float32)
+    w_hwio = rng.randn(k, k, cin // groups, cout).astype(np.float32)
+    b = rng.randn(cout).astype(np.float32)
+    want = j_sphere.sphere_conv2d(jnp.asarray(x), jnp.asarray(w_hwio),
+                                  jnp.asarray(b), groups=groups)
+    got = t_sphere.sphere_conv2d(
+        torch.from_numpy(x),
+        torch.from_numpy(np.ascontiguousarray(w_hwio.transpose(3, 2, 0, 1))),
+        torch.from_numpy(b), groups=groups)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_pixel_shuffle_exact_and_torch_order():
+    x = np.random.RandomState(0).randn(2, 6, 8, 12).astype(np.float32)
+    tx = torch.from_numpy(x)
+    un = t_ps.pixel_unshuffle(tx, 2)
+    np.testing.assert_array_equal(un.numpy(),
+                                  np.asarray(j_ps.pixel_unshuffle(jnp.asarray(x), 2)))
+    sh = t_ps.pixel_shuffle(tx, 2)
+    np.testing.assert_array_equal(sh.numpy(),
+                                  np.asarray(j_ps.pixel_shuffle(jnp.asarray(x), 2)))
+    # channel order of torch's NCHW pixel_unshuffle
+    ref = torch.nn.functional.pixel_unshuffle(tx.permute(0, 3, 1, 2), 2)
+    np.testing.assert_array_equal(un.numpy(), ref.permute(0, 2, 3, 1).numpy())
+
+
+def _models():
+    rng = np.random.RandomState(0)
+    x = rng.randn(2, 16, 32, 8).astype(np.float32)
+    static = rng.randn(16, 32, 1).astype(np.float32)
+    jmodel = JaxAE(j_config.DCAEConfig(**TINY))
+    params = jax.tree.map(np.asarray, jmodel.init(
+        jax.random.PRNGKey(0), jnp.asarray(x), jnp.asarray(static)))
+    tmodel = TorchAE(t_config.DCAEConfig(**TINY))
+    tmodel.load_state_dict(state_dict_from_flax(params, "dcae"), strict=True)
+    return jmodel, params, tmodel.eval(), x, static
+
+
+def _rel(a, b):
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def test_tiny_encode_decode_match_jax():
+    jmodel, params, tmodel, x, static = _models()
+    z_j = np.asarray(jmodel.apply(params, jnp.asarray(x), jnp.asarray(static),
+                                  method=JaxAE.encode))
+    with torch.no_grad():
+        z_t = tmodel.encode(torch.from_numpy(x), torch.from_numpy(static)).numpy()
+    assert z_t.shape == (2, 2, 4, 4)
+    assert _rel(z_t, z_j) <= 1e-4, _rel(z_t, z_j)
+
+    for return_static in (False, True):
+        y_j = np.asarray(jmodel.apply(params, jnp.asarray(z_j), return_static,
+                                      method=JaxAE.decode))
+        with torch.no_grad():
+            y_t = tmodel.decode(torch.tensor(z_j), return_static).numpy()
+        assert y_t.shape == y_j.shape == (2, 16, 32, 9 if return_static else 8)
+        assert _rel(y_t, y_j) <= 1e-4, _rel(y_t, y_j)
+
+
+def test_state_dict_from_flax_equals_export():
+    _, params, _, _, _ = _models()
+    ours = state_dict_from_flax(params, "dcae")
+    ref = export_reference_state_dict(params, "dcae")
+    assert list(ours) == list(ref)
+    for name, w in ref.items():
+        np.testing.assert_array_equal(ours[name].numpy(), w)
+
+
+def test_production_config_names_and_shapes():
+    cfg = j_config.DCAEConfig()
+    x = jax.ShapeDtypeStruct((1, 120, 240, 84), jnp.float32)
+    static = jax.ShapeDtypeStruct((120, 240, 5), jnp.float32)
+    shapes = jax.eval_shape(JaxAE(cfg).init, jax.random.PRNGKey(0), x, static)
+    with torch.device("meta"):
+        model = TorchAE(t_config.DCAEConfig())
+    params = jax.tree.map(lambda s: np.zeros(s.shape, np.float32), shapes)
+    sd = state_dict_from_flax(params, "dcae")
+    model.load_state_dict(sd, strict=True, assign=True)
+    assert tuple(sd["encoder.conv_in.weight"].shape) == (252, 89, 3, 3)
+
+
+def test_temb_not_ported():
+    with pytest.raises(NotImplementedError):
+        TorchAE(t_config.DCAEConfig(**TINY, temb_channels=16))
