@@ -1,14 +1,16 @@
 """Typed configuration dataclasses of the PyTorch port.
 
 The port's own copies of ``ladcast_tpu.config``'s ``DCAEConfig``,
-``LaDCastDiTConfig``, ``ladcast_375m_config``, ``EDMSchedulerConfig`` and
-``RolloutConfig``, with the same fields and defaults (the shipped
-configs/DC_AE_84_pretrain.yaml and configs/ladcast_375M.yaml settings).
-Frozen, so a config is hashable and safe to share between modules.
+``LaDCastDiTConfig``, ``ladcast_375m_config``, ``EDMSchedulerConfig``,
+``NoiseSamplerConfig``, ``RolloutConfig`` and ``config_from_dict``, with
+the same fields and defaults (the shipped configs/DC_AE_84_pretrain.yaml
+and configs/ladcast_375M.yaml settings). Frozen, so a config is hashable
+and safe to share between modules.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -77,6 +79,8 @@ class LaDCastDiTConfig:
     ``attention_impl``: "auto" runs the hand-written kernels on CUDA
     tensors and their plain versions on CPU tensors; "plain" runs the
     PyTorch composite everywhere (the reference the kernels are held to).
+    ``remat``: per-block gradient checkpointing of the dual- and
+    single-stream blocks (training only; no effect without grad).
     """
 
     in_channels: int = 84
@@ -103,6 +107,7 @@ class LaDCastDiTConfig:
     scale_attn_by_lat: bool = False
     attention_impl: str = "auto"  # "auto" | "plain"
     int8_matmuls: bool = False
+    remat: bool = False
 
     def __post_init__(self):
         _freeze_tuples(self, (
@@ -157,6 +162,18 @@ class EDMSchedulerConfig:
 
 
 @dataclass(frozen=True)
+class NoiseSamplerConfig:
+    """Log-normal training sigma sampler (configs/ladcast_375M.yaml:38-42):
+    (P_mean, P_std) annealed linearly over ``num_max_steps``."""
+
+    P_mean_start: float = -1.2
+    P_std_start: float = 1.2
+    P_mean_end: float = -1.2
+    P_std_end: float = 1.2
+    num_max_steps: int = 50000
+
+
+@dataclass(frozen=True)
 class RolloutConfig:
     """Ensemble AR rollout settings."""
 
@@ -183,3 +200,10 @@ class RolloutConfig:
     @property
     def num_repetitions(self) -> int:
         return -(-self.total_num_steps // self.return_seq_len)
+
+
+def config_from_dict(cls, d: dict):
+    """``cls`` from the keys of ``d`` that are its fields (others, such as a
+    YAML ``target``, are ignored)."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    return cls(**{k: v for k, v in d.items() if k in names})

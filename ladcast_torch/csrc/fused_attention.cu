@@ -1,7 +1,8 @@
 // Fused Q-side RMS-norm + RoPE + flash attention (non-causal, forward).
 //
 // Replaces: ladcast_tpu/ops/pallas/flash_attention.py:113 _fa_fused_kernel
-// (launched by _fused_impl, :179; the lse-returning variant is not ported).
+// (launched by _fused_impl, :179), with its lse-returning variant (:163-167,
+// :247-263) for the training path.
 //
 // Inputs: q (B, Sq, H, 128), kn and v (B, Sk, H, 128), all bf16 or all fp32;
 // kn has already been through the K-side norm+RoPE pass (norm_rope.cu).
@@ -10,7 +11,10 @@
 // scaled by 1/sqrt(D), then cast to the input dtype; an online softmax runs
 // over all keys with keys >= Sk masked; P is cast to the input dtype before
 // P.V; m, l and the accumulator are fp32; the output is acc / l in the
-// input dtype.
+// input dtype. Given an `lse` pointer (B, H, Sq) fp32, each row also writes
+// its logsumexp m + log(l) in natural-log units, the statistic the flash
+// backward (flash_bwd.cu) recomputes P from; rows >= Sq are not written.
+// A null `lse` is the lean inference kernel.
 //
 // Bound on an H100: at the main path's B=20, H=12, Sq=Sk=2250, the two
 // products are 4*B*H*Sq*Sk*D = 6.2e11 flop, 0.63 ms at 989 TFLOP/s bf16,
@@ -33,11 +37,19 @@
 
 #include <math.h>
 
+#include "mma.cuh"
 #include "norm_rope.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using ladcast::cp_async16;
+using ladcast::cp_async_commit;
+using ladcast::cp_async_wait;
+using ladcast::ldmatrix_x4;
+using ladcast::ldmatrix_x4_trans;
+using ladcast::mma_bf16;
+using ladcast::pack_bf16;
 constexpr int D = ladcast::kHeadDim;
 constexpr float kNegInf = -1e30f;  // as the TPU kernel: exp(kNegInf - m) == 0
 
@@ -46,51 +58,7 @@ constexpr int BM = 64, BN = 64, kWarps = 4, LDS = D + 8;
 constexpr int kStages = 2;  // K/V tiles in flight
 constexpr int kSmemBf16 = (BM + 2 * kStages * BN) * LDS * (int)sizeof(bf16);
 constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(smem_addr(smem)), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c (16x8 fp32) += a (16x16 bf16, row) * b (16x8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Start the copy of K/V rows [k0, k0 + BN) into one stage; rows past Sk
 // are zero-filled with plain stores (visible after the next barrier).
@@ -114,8 +82,8 @@ __global__ void __launch_bounds__(kWarps * 32)
 fa_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kn,
                const bf16* __restrict__ v, const float* __restrict__ qcos,
                const float* __restrict__ qsin, const float* __restrict__ qw,
-               bf16* __restrict__ out, int Sq, int Sk, int H, float eps,
-               float scale) {
+               bf16* __restrict__ out, float* __restrict__ lse, int Sq, int Sk,
+               int H, float eps, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
   bf16* sK = sQ + BM * LDS;              // kStages tiles of BN rows
@@ -264,6 +232,11 @@ fa_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kn,
       *reinterpret_cast<__nv_bfloat162*>(ob + r1 * rs + col) =
           __floats2bfloat162_rn(o[dt][2] / l1, o[dt][3] / l1);
   }
+  if (lse != nullptr && (lane & 3) == 0) {  // m is in log2 units
+    float* lb = lse + ((long long)b * H + h) * Sq;
+    if (r0 < Sq) lb[r0] = (m0 + log2f(l0)) * kLn2;
+    if (r1 < Sq) lb[r1] = (m1 + log2f(l1)) * kLn2;
+  }
 }
 
 // ----------------------------------------------------------------- fp32 ---
@@ -277,8 +250,8 @@ __global__ void __launch_bounds__(kFThreads)
 fa_f32_kernel(const float* __restrict__ q, const float* __restrict__ kn,
               const float* __restrict__ v, const float* __restrict__ qcos,
               const float* __restrict__ qsin, const float* __restrict__ qw,
-              float* __restrict__ out, int Sq, int Sk, int H, float eps,
-              float scale) {
+              float* __restrict__ out, float* __restrict__ lse, int Sq, int Sk,
+              int H, float eps, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* sQ = reinterpret_cast<float*>(smem);
   float* sK = sQ + FM * LQ;
@@ -369,18 +342,20 @@ fa_f32_kernel(const float* __restrict__ q, const float* __restrict__ kn,
   if (q0 + r < Sq) {
 #pragma unroll
     for (int i = 0; i < D / 8; ++i) ob[(q0 + r) * rs + part + 8 * i] = o[i] / l;
+    if (lse != nullptr && part == 0)
+      lse[((long long)b * H + h) * Sq + q0 + r] = m + logf(l);
   }
 }
 
 }  // namespace
 
-// q, out: (B, Sq, H, 128); kn, v: (B, Sk, H, 128); contiguous, one dtype.
-// Returns cudaGetLastError().
+// q, out: (B, Sq, H, 128); kn, v: (B, Sk, H, 128); contiguous, one dtype;
+// lse: null, or (B, H, Sq) fp32. Returns cudaGetLastError().
 extern "C" int ladcast_fused_attention(const void* q, const void* kn, const void* v,
                                        const float* qcos, const float* qsin,
-                                       const float* qw, void* out, int B, int Sq,
-                                       int Sk, int H, float eps, float scale,
-                                       int dtype, void* stream) {
+                                       const float* qw, void* out, float* lse,
+                                       int B, int Sq, int Sk, int H, float eps,
+                                       float scale, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == ladcast::kDtypeBF16) {
     static const cudaError_t attr = cudaFuncSetAttribute(
@@ -390,7 +365,7 @@ extern "C" int ladcast_fused_attention(const void* q, const void* kn, const void
     fa_bf16_kernel<<<grid, kWarps * 32, kSmemBf16, st>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(kn),
         static_cast<const bf16*>(v), qcos, qsin, qw, static_cast<bf16*>(out),
-        Sq, Sk, H, eps, scale);
+        lse, Sq, Sk, H, eps, scale);
   } else if (dtype == ladcast::kDtypeF32) {
     static const cudaError_t attr = cudaFuncSetAttribute(
         fa_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemF32);
@@ -399,7 +374,7 @@ extern "C" int ladcast_fused_attention(const void* q, const void* kn, const void
     fa_f32_kernel<<<grid, kFThreads, kSmemF32, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(kn),
         static_cast<const float*>(v), qcos, qsin, qw, static_cast<float*>(out),
-        Sq, Sk, H, eps, scale);
+        lse, Sq, Sk, H, eps, scale);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -5,6 +5,8 @@
   c_noise           ln(sigma) / 4
   output            c_skip*x + c_out*F(x), c_skip = sigma_data^2/(sigma^2+sigma_data^2),
                     c_out = sigma*sigma_data/sqrt(sigma^2+sigma_data^2)
+  add_noise         x + n*sigma
+  loss weight       lambda(sigma) = (sigma^2 + sigma_data^2) / (sigma*sigma_data)^2
 """
 
 from __future__ import annotations
@@ -21,6 +23,11 @@ def karras_sigmas(cfg: EDMSchedulerConfig, num_steps: int,
     min_inv_rho = cfg.sigma_min ** (1.0 / cfg.rho)
     max_inv_rho = cfg.sigma_max ** (1.0 / cfg.rho)
     return (max_inv_rho + ramp * (min_inv_rho - max_inv_rho)) ** cfg.rho
+
+
+def train_sigmas(cfg: EDMSchedulerConfig, device=None) -> torch.Tensor:
+    """The ``num_train_timesteps``-long training schedule (index -> sigma)."""
+    return karras_sigmas(cfg, cfg.num_train_timesteps, device=device)
 
 
 def inference_sigmas(cfg: EDMSchedulerConfig, num_inference_steps: int,
@@ -49,3 +56,12 @@ def precondition_outputs(cfg: EDMSchedulerConfig, sample, model_output, sigma):
     else:
         raise ValueError(f"Unsupported prediction_type {cfg.prediction_type}")
     return c_skip * sample + c_out * model_output
+
+
+def add_noise(sample, noise, sigma):
+    return sample + noise * sigma
+
+
+def edm_loss_weighting(cfg: EDMSchedulerConfig, sigma):
+    """lambda(sigma) of Karras et al. eq. 8."""
+    return (sigma**2 + cfg.sigma_data**2) / (sigma * cfg.sigma_data) ** 2

@@ -20,7 +20,8 @@ Quirks the weights depend on, kept as in the reference:
   * the AdaLN-continuous head splits scale first, then shift.
 
 Frames are channels-last (B, T, H, W, C); tokens (B, S, D); attention BSHD.
-Parameter names are the reference diffusers ones.
+Parameter names are the reference diffusers ones. With ``cfg.remat`` each
+dual- and single-stream block is a gradient checkpoint while grad is on.
 """
 
 from __future__ import annotations
@@ -31,8 +32,10 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ladcast_torch.config import LaDCastDiTConfig
+from ladcast_torch.metrics.weights import cos_lat_weights
 from ladcast_torch.models.layers import (
     Affine,
     Dense,
@@ -47,12 +50,6 @@ from ladcast_torch.ops.embeddings import timestep_embedding, year_sincos_embeddi
 from ladcast_torch.ops.norms import layer_norm
 
 _gelu_tanh = functools.partial(F.gelu, approximate="tanh")
-
-
-def cos_lat_weights(lat_deg) -> np.ndarray:
-    """cos(lat) normalized to mean 1."""
-    w = np.cos(np.deg2rad(np.asarray(lat_deg, dtype=np.float64)))
-    return w / w.mean()
 
 
 # ---------------------------------------------------------------------------
@@ -389,6 +386,21 @@ class SingleStreamBlock(nn.Module):
 # Top-level model
 # ---------------------------------------------------------------------------
 
+def _remat(block: nn.Module, *args):
+    """``block(*args)`` as a non-reentrant gradient checkpoint: only its
+    inputs are kept, its internals are recomputed in the backward. The
+    block's parameters are passed as checkpoint inputs, so the recompute
+    sees the tensors the forward saw, also under
+    ``torch.func.functional_call`` (whose swap ends before the backward)."""
+    names, tensors = zip(*block.named_parameters())
+
+    def run(*flat):
+        params = dict(zip(names, flat[:len(names)]))
+        return torch.func.functional_call(block, params, flat[len(names):])
+
+    return checkpoint(run, *tensors, *args, use_reentrant=False)
+
+
 class LaDCastTransformer3D(nn.Module):
     """forward(latents, c_noise, conditioning, year_progress=None):
 
@@ -493,11 +505,13 @@ class LaDCastTransformer3D(nn.Module):
             temb = temb * (1 + scale) + shift
         temb = temb.to(latents.dtype)
 
+        remat = cfg.remat and torch.is_grad_enabled()
         for block in self.transformer_blocks:
-            x, cond = block(x, cond, temb, rope_table, pred_bias)
+            args = (x, cond, temb, rope_table, pred_bias)
+            x, cond = _remat(block, *args) if remat else block(*args)
         for block in self.single_transformer_blocks:
-            x, cond = block(x, cond, temb, rope_table, cond_rope_table,
-                            pred_bias)
+            args = (x, cond, temb, rope_table, cond_rope_table, pred_bias)
+            x, cond = _remat(block, *args) if remat else block(*args)
 
         scale, shift = self.norm_out(temb).chunk(2, dim=-1)
         x = _modulate(layer_norm(x, None, None, 1e-7), shift, scale)

@@ -42,7 +42,7 @@ def test_port_imports_no_jax(path):
 
 def test_kernel_sources_ship_with_the_package():
     srcs = _build.sources()
-    assert set(srcs) == {"norm_rope", "fused_attention"}
+    assert set(srcs) == {"norm_rope", "fused_attention", "flash_bwd"}
     for src in srcs.values():
         text = src.read_text()
         assert "Replaces: ladcast_tpu/ops/pallas/flash_attention.py:" in text
