@@ -3,10 +3,13 @@
 
     python3 chip_smoke.py            # one repetition of the bench workload
     python3 chip_smoke.py --reps 10  # the whole 240 h bench workload
+    python3 chip_smoke.py --records out/records.jsonl  # keep every record
 
 Phases, each printed as JSON lines; any failure raises, so the script exits
-non-zero and never prints the last line. Two paths of the port run: the
-ensemble rollout (inference) and the AR trainer of the 375M DiT.
+non-zero and never prints the last line. Three paths of the port run: the
+ensemble rollout of the bench workload (inference), the AR trainer of the
+375M DiT, and the forecast CLI (hub checkpoints in, latent and field files
+out).
 
   1. environment: the card (nvidia-smi), torch and CUDA versions, and the
      build of the CUDA kernels from ``ladcast_torch/csrc`` (one nvcc per
@@ -18,6 +21,17 @@ ensemble rollout (inference) and the AR trainer of the 375M DiT.
      roofline bound and, for the attention, the time of PyTorch's
      ``scaled_dot_product_attention`` on the pre-normed inputs (a
      yardstick only; the port never calls it);
+     the plain flash attention (K6) follows at (2, 2250 / 450, 12, 128) and
+     (1, 130, 3, 64), fp32 and bf16 inputs, with SDPA as its yardstick,
+     and is driven once through ``ops.attention.dot_product_attention``;
+  2a. conv kernels: the dense (K4) and depthwise (K5) convolutions against
+     their plain versions, zero-padded and circular, at every distinct
+     shape of the shipped DCAE and at small ragged shapes: in bf16 at the
+     batches the paths give them (the decoder's shapes at B=80, the bench
+     path's decode, and B=40, the forecast path's chunk; the encoder's at
+     B=1), in fp32 at B=2; each timed, with cuDNN's ``F.conv2d`` on
+     channels-last tensors as the yardstick (the port calls it only under
+     ``CONV_MODE = "library"``);
   2b. backward kernels: the lse variant of the attention kernel and the
      flash backward (dq, dk/dv) against their plain versions, bf16 and
      fp32, at the training shapes (B=4, S=2250 dual- and single-stream
@@ -33,11 +47,16 @@ ensemble rollout (inference) and the AR trainer of the 375M DiT.
      bf16; every attention projection and qk-norm weight must get a
      finite, non-zero gradient, and a raw kernel entry given a tensor
      that requires grad must refuse it;
+  3c. DCAE parity: one encode and one decode of the shipped DCAE at B=2
+     under ``CONV_MODE = "kernel"`` (the default) against ``"library"``,
+     fp32 and bf16, with the launches of K4 and K5 per call;
   4. main path: ``ladcast_torch.bench.make_bench`` with the 375M DiT and
      the shipped DCAE, seeded bf16 weights: encode, 20 members, Heun-20
      repetitions (39 DiT calls each), decode of every repetition's 80
      frames. Outputs must be finite and each kernel must have launched
-     7 x 39 times per repetition;
+     7 x 39 times per repetition (the conv kernels once per sphere conv of
+     the encode and of each decode); the decode of 80 frames is then timed
+     under both conv modes and its two results compared;
   5. training: ``ladcast_torch.cli.train_ar.run`` with the
      configs/ladcast_375m.yaml settings (batch 4, 4 target frames, bf16
      compute on fp32 masters, AdamW, clip, cosine warmup, EMA) on a
@@ -48,7 +67,15 @@ ensemble rollout (inference) and the AR trainer of the 375M DiT.
      kernel backward, none of the backward kernels under the composite);
      the last step's checkpoint must restore into a fresh trainer (the
      whole state: parameters, both moments, count, EMA, step);
-  6. the kernel summary line, the card line and, last, the ok line.
+  6. forecast: a seeded 375M DiT (index-sharded) and the shipped DCAE
+     (one file) written as hub directories by the port's
+     ``save_pretrained``, synthetic ``.npz`` fields with SST NaNs, then
+     ``ladcast_torch.cli.pred_rollout`` twice, 20 members, 20 steps, 24 h:
+     ``--sampler edm --decode`` for one init time and ``--sampler dpm`` for
+     two. File layouts, finiteness, the t=0 frame against the encoder, the
+     launches of K1, K2, K4 and K5 per init time, and the seconds of load,
+     encode, rollout and decode (the decode under both conv modes);
+  7. the kernel summary line, the card line and, last, the ok line.
 
 With ``--profile``, one more repetition of the main path runs under
 ``torch.profiler`` after phase 4, and 4 more training steps (kernel
@@ -58,6 +85,7 @@ device's busy share of that run and its kernel time by category.
 """
 
 import argparse
+import contextlib
 import dataclasses
 import datetime
 import json
@@ -90,6 +118,15 @@ PEAKS = [("H100 PCIe", 756e12, 51e12, 2.0e12),
 # bf16 atol is ATTN_BF16_ULPS bf16 ulps of max |plain|: a fixed 2e-2 would
 # pass a kernel that leaves the ragged last key tile unmasked.
 ATTN_BF16_ULPS = 2
+# The conv kernels and their plain versions both sum the exact products of
+# bf16 inputs in fp32, in different orders, and round once to bf16: a pair of
+# results differs by at most one bf16 ulp of that element (within the 2**-7
+# relative term) wherever the fp32 sums straddle a rounding boundary. The
+# outputs have the magnitude of sqrt(kh kw Cin) products, so near an
+# element's zero the atol is CONV_BF16_ULPS bf16 ulps at the output's RMS. A
+# dropped tap, an unmasked halo row or a missing wrap column moves the
+# elements it touches by about a third of that RMS, some forty times more.
+CONV_BF16_ULPS = 2
 # The lse rows are fp32 in either dtype. From bf16 inputs, the kernel may
 # round an element of the scaled Q to the bf16 value next to the plain
 # version's (as the output check allows), which moves that row's lse by
@@ -98,6 +135,7 @@ LSE_ATOL = {"bfloat16": 1e-3, "float32": 1e-4}
 REL_L2 = {"bfloat16": 5e-3, "float32": 1e-4}
 MODEL_TOL = {"bfloat16": 2e-2, "float32": 1e-3}  # relative L2, 375M forward
 GRAD_TOL = {"bfloat16": 2e-2, "float32": 1e-3}  # relative L2, 375M gradients
+DCAE_TOL = {"bfloat16": 2e-2, "float32": 1e-3}  # relative L2, kernel vs library convs
 TRAIN_STEPS = 12
 
 # configs/ladcast_375m.yaml as PyYAML reads it (PyYAML is not needed here;
@@ -136,8 +174,17 @@ LADCAST_375M_YAML = {
 }
 
 
+RECORDS = None  # --records: a file that also gets every record
+
+
 def emit(obj):
-    print(json.dumps(obj), flush=True)
+    """Print one record and, with ``--records``, append it to that file: a
+    caller that sees only the end of a long output finds every line there."""
+    line = json.dumps(obj)
+    print(line, flush=True)
+    if RECORDS is not None:
+        with open(RECORDS, "a") as f:
+            f.write(line + "\n")
 
 
 def nvidia_smi_line():
@@ -160,8 +207,12 @@ def kernel_tolerance(kernel, dtype_name, ref):
                 "rel_l2": REL_L2["float32"]}
     if dtype_name == "float32":
         return {"atol": 1e-4, "rtol": 0.0, "rel_l2": REL_L2[dtype_name]}
-    atol = (2e-2 if kernel == "norm_rope" else
-            ATTN_BF16_ULPS * bf16_ulp(ref.float().abs().max().item()))
+    if kernel == "norm_rope":
+        atol = 2e-2
+    elif kernel in ("dense_conv", "depthwise_conv"):
+        atol = CONV_BF16_ULPS * bf16_ulp(ref.float().square().mean().sqrt().item())
+    else:
+        atol = ATTN_BF16_ULPS * bf16_ulp(ref.float().abs().max().item())
     return {"atol": atol, "rtol": 2**-7, "rel_l2": REL_L2[dtype_name]}
 
 
@@ -287,6 +338,347 @@ def kernel_phase(peaks):
             del q, k, v, kn, out, ref
         torch.cuda.empty_cache()
     return results
+
+
+@contextlib.contextmanager
+def conv_mode(mode):
+    """``ops.sphere.CONV_MODE`` set to ``mode`` for the block."""
+    from ladcast_torch.ops import sphere
+
+    prev, sphere.CONV_MODE = sphere.CONV_MODE, mode
+    try:
+        yield
+    finally:
+        sphere.CONV_MODE = prev
+
+
+# The sphere convs of the shipped DCAE (DCAEConfig() defaults), by distinct
+# shape: (H, W, Cin, Cout) of the dense 3x3 ones, (H, W, C, k) of the
+# depthwise ones (both halves run all four). tests/test_torch_conv_kernels.py
+# holds these tables to the model.
+DECODER_DENSE = [
+    (15, 30, 84, 1008), (15, 30, 1008, 2016), (30, 60, 504, 2016),
+    (60, 120, 504, 1008), (60, 120, 504, 504), (120, 240, 252, 252),
+    (120, 240, 252, 89)]
+ENCODER_DENSE = [
+    (120, 240, 89, 252), (120, 240, 252, 252), (120, 240, 252, 126),
+    (60, 120, 504, 504), (60, 120, 504, 126), (30, 60, 504, 252),
+    (15, 30, 1008, 84)]
+DEPTHWISE_SHAPES = [(15, 30, 8064, 3), (30, 60, 4032, 3), (15, 30, 2976, 5),
+                    (30, 60, 1440, 5)]
+# The batches the paths give the kernels in bf16: the bench path decodes a
+# repetition's 80 frames in one call, the forecast path decodes in chunks of
+# 40, and both encode one frame. fp32 is not on a path: B = 2, for parity.
+DECODE_BATCHES = (80, 40)
+ENCODE_BATCH = 1
+FP32_BATCH = 2
+# The kernels line reads the forecast path's launches, so its times are those
+# of that path's decode batch.
+KERNEL_LINE_CASES = {"dense_conv": ("120x240x252->252", 40),
+                     "depthwise_conv": ("30x60x4032 k3", 40)}
+
+
+def conv_production_cases(dtype_name):
+    """(B, dense shapes, depthwise shapes) to check and time in a dtype."""
+    if dtype_name == "float32":
+        both = DECODER_DENSE + [c for c in ENCODER_DENSE if c not in DECODER_DENSE]
+        return [(FP32_BATCH, both, DEPTHWISE_SHAPES)]
+    return ([(B, DECODER_DENSE, DEPTHWISE_SHAPES) for B in DECODE_BATCHES]
+            + [(ENCODE_BATCH, ENCODER_DENSE, DEPTHWISE_SHAPES)])
+
+
+def conv_kernel_phase(peaks):
+    """K4 and K5 against their plain versions and cuDNN at the DCAE's
+    shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from ladcast_torch.ops import dense_conv as dc
+    from ladcast_torch.ops import depthwise_conv as dw
+
+    dev = torch.device("cuda")
+    peak_bf16, peak_f32, bw = peaks
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def rand(shape, scale, dtype):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    def library(x, w_oihw, p, circular, groups):
+        """One cuDNN call on the channels-last views; for the circular
+        form the wrap columns are concatenated beforehand, outside the
+        timed call."""
+        if circular:
+            x = torch.cat([x[:, :, x.shape[2] - p:], x, x[:, :, :p]], dim=2)
+        xv = x.permute(0, 3, 1, 2)
+        pad = (p, 0) if circular else p
+        return lambda: F.conv2d(xv, w_oihw, padding=pad, groups=groups)
+
+    results = {"dense_conv": [], "depthwise_conv": []}
+    dense_small = [(2, 7, 6, 89, 21, 3), (1, 5, 6, 130, 130, 3)]
+    dw_small = [(2, 7, 6, 89, 3), (2, 5, 6, 130, 5)]
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        tkw = (dict(rounds=10, inner=2) if dtype == torch.bfloat16
+               else dict(rounds=5, inner=1, warmup=1))
+        production = conv_production_cases(dname)
+        cases = ([("small", *c) for c in dense_small]
+                 + [("production", B, *c, 3) for B, dense, _ in production
+                    for c in dense])
+        for kind, B, H, W, Cin, Cout, k in cases:
+            p = k // 2
+            pads = ((p, p), (p, p))
+            x = rand((B, H, W, Cin), 1.0, dtype)
+            # lecun-normal scale, as the model's weights: outputs of O(1)
+            w = rand((k, k, Cin, Cout), (k * k * Cin) ** -0.5, dtype)
+            w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            flops = 2 * k * k * Cin * Cout * B * H * W
+            nbytes = (x.numel() + w.numel() + B * H * W * Cout) * x.element_size()
+            for circular in (True, False):
+                out = dc.dense_conv_forward(x, w, pads, circular)
+                torch.cuda.synchronize()
+                ref = dc.dense_conv_plain(x, w, pads, circular)
+                rec = {"phase": "conv_kernel", "kernel": "dense_conv",
+                       "case": f"{H}x{W}x{Cin}->{Cout}", "kind": kind,
+                       "dtype": dname, "B": B, "k": k, "circular": circular,
+                       **compare(out, ref, kernel_tolerance("dense_conv", dname, ref)),
+                       "finite": bool(torch.isfinite(out).all()),
+                       **bound(flops, nbytes,
+                               peak_bf16 if dtype == torch.bfloat16 else peak_f32, bw)}
+                if kind == "production":
+                    rec["ms"] = time_ms(
+                        lambda: dc.dense_conv_forward(x, w, pads, circular), **tkw)
+                    rec["plain_ms"] = time_ms(
+                        lambda: dc.dense_conv_plain(x, w, pads, circular), **tkw)
+                    rec["library_ms"] = time_ms(library(x, w_oihw, p, circular, 1),
+                                                **tkw)
+                emit(rec)
+                results["dense_conv"].append(rec)
+                if not (rec["ok"] and rec["finite"]):
+                    raise AssertionError(f"dense_conv {rec}")
+                del out, ref
+            del x, w, w_oihw
+        cases = ([("small", *c) for c in dw_small]
+                 + [("production", B, *c) for B, _, depthwise in production
+                    for c in depthwise])
+        for kind, B, H, W, C, k in cases:
+            p = k // 2
+            pads = ((p, p), (p, p))
+            x = rand((B, H, W, C), 1.0, dtype)
+            kk = rand((k, k, C), 1.0 / k, dtype)
+            w_oihw = kk.permute(2, 0, 1)[:, None].contiguous()
+            flops = 2 * k * k * C * B * H * W
+            nbytes = (2 * x.numel() + kk.numel()) * x.element_size()
+            for circular in (True, False):
+                out = dw.depthwise_same_conv_forward(x, kk, pads, circular)
+                torch.cuda.synchronize()
+                ref = dw.depthwise_same_conv_plain(x, kk, pads, circular)
+                rec = {"phase": "conv_kernel", "kernel": "depthwise_conv",
+                       "case": f"{H}x{W}x{C} k{k}", "kind": kind, "dtype": dname,
+                       "B": B, "k": k, "circular": circular,
+                       **compare(out, ref, kernel_tolerance("depthwise_conv", dname, ref)),
+                       "finite": bool(torch.isfinite(out).all()),
+                       # multiply-adds on the CUDA cores in either dtype
+                       **bound(flops, nbytes, peak_f32, bw)}
+                if kind == "production":
+                    rec["ms"] = time_ms(lambda: dw.depthwise_same_conv_forward(
+                        x, kk, pads, circular), **tkw)
+                    rec["plain_ms"] = time_ms(lambda: dw.depthwise_same_conv_plain(
+                        x, kk, pads, circular), **tkw)
+                    rec["library_ms"] = time_ms(library(x, w_oihw, p, circular, C),
+                                                **tkw)
+                emit(rec)
+                results["depthwise_conv"].append(rec)
+                if not (rec["ok"] and rec["finite"]):
+                    raise AssertionError(f"depthwise_conv {rec}")
+                del out, ref
+            del x, kk, w_oihw
+        torch.cuda.empty_cache()
+    return results
+
+
+def flash_plain_phase(peaks):
+    """K6 against its plain version, with SDPA as the yardstick; then once
+    through ``dot_product_attention``, the entry a caller uses."""
+    import torch
+    import torch.nn.functional as F
+
+    from ladcast_torch.ops import attention, flash_attention as fa
+
+    dev = torch.device("cuda")
+    _, peak_f32, bw = peaks
+    g = torch.Generator(device=dev).manual_seed(6)
+    recs = []
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        for name, (B, S, H, D), timed in (("s2250", (2, 2250, 12, 128), True),
+                                          ("s450", (2, 450, 12, 128), True),
+                                          ("ragged_130", (1, 130, 3, 64), False)):
+            q, k, v = (torch.randn(B, S, H, D, generator=g, device=dev).to(dtype)
+                       for _ in range(3))
+            out = fa.flash_attention_forward(q, k, v)
+            torch.cuda.synchronize()
+            ref = fa.flash_attention_plain(q, k, v)
+            rec = {"phase": "kernel", "kernel": "flash_attention", "case": name,
+                   "dtype": dname, "B": B, "S": S, "H": H, "D": D,
+                   **compare(out, ref, kernel_tolerance("flash_attention", dname, ref)),
+                   "finite": bool(torch.isfinite(out).all()),
+                   # every product is fp32, whatever the input dtype
+                   **bound(4 * B * H * S * S * D, 4 * q.numel() * q.element_size(),
+                           peak_f32, bw)}
+            if timed:
+                rec["ms"] = time_ms(lambda: fa.flash_attention_forward(q, k, v),
+                                    rounds=10, inner=2)
+                rec["plain_ms"] = time_ms(lambda: fa.flash_attention_plain(q, k, v),
+                                          rounds=10, inner=1)
+                qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+                rec["library_ms"] = time_ms(
+                    lambda: F.scaled_dot_product_attention(qh, kh, vh),
+                    rounds=10, inner=1)
+                del qh, kh, vh
+            emit(rec)
+            recs.append(rec)
+            if not (rec["ok"] and rec["finite"]):
+                raise AssertionError(f"flash_attention {rec}")
+    # its path: no model calls it, a caller reaches it through the op
+    fa.flash_attention_forward.launches = 0
+    q, k, v = (torch.randn(2, 2250, 12, 128, generator=g, device=dev).bfloat16()
+               for _ in range(3))
+    out = attention.dot_product_attention(q, k, v)
+    launches = fa.flash_attention_forward.launches
+    ref = attention.dot_product_attention(q, k, v, impl="plain")
+    rec = {"phase": "op_path", "op": "dot_product_attention", "launches": launches,
+           **compare(out, ref, kernel_tolerance("flash_attention", "bfloat16", ref))}
+    emit(rec)
+    if launches != 1 or not rec["ok"]:
+        raise AssertionError(f"dot_product_attention {rec}")
+    return recs, launches
+
+
+def _conv_launches():
+    from ladcast_torch.ops import dense_conv as dc
+    from ladcast_torch.ops import depthwise_conv as dw
+
+    return {"dense_conv": dc.dense_conv_forward.launches,
+            "depthwise_conv": dw.depthwise_same_conv_forward.launches}
+
+
+def _reset_conv_launches():
+    from ladcast_torch.ops import dense_conv as dc
+    from ladcast_torch.ops import depthwise_conv as dw
+
+    dc.dense_conv_forward.launches = 0
+    dw.depthwise_same_conv_forward.launches = 0
+
+
+def sphere_conv_counts(module):
+    """{"dense_conv", "depthwise_conv"}: the sphere convs under ``module``,
+    which is what one call of it launches of K4 and K5."""
+    from ladcast_torch.models.dcae import SphereConv
+
+    convs = [m for m in module.modules() if isinstance(m, SphereConv)]
+    return {"dense_conv": sum(m.groups == 1 for m in convs),
+            "depthwise_conv": sum(m.groups > 1 for m in convs)}
+
+
+def dcae_parity_phase():
+    """The shipped DCAE at B=2 under the two conv modes."""
+    import torch
+
+    from ladcast_torch.config import DCAEConfig
+    from ladcast_torch.models.dcae import build_dcae
+    from ladcast_torch.ops import sphere
+
+    if sphere.CONV_MODE != "kernel":
+        raise AssertionError(f"the default CONV_MODE is {sphere.CONV_MODE!r}")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(8)
+    fields = torch.randn(2, 120, 240, 84, generator=g, device=dev)
+    static = torch.randn(120, 240, 5, generator=g, device=dev)
+    z = torch.randn(2, 15, 30, 84, generator=g, device=dev)
+    counts = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        dcae = build_dcae(DCAEConfig(), dev, dtype, seed=9)
+        expected = {"encode": sphere_conv_counts(dcae.encoder),
+                    "decode": sphere_conv_counts(dcae.decoder)}
+        outs, launches = {}, {}
+        with torch.inference_mode():
+            for mode in ("kernel", "library"):
+                with conv_mode(mode):
+                    for stage, fn in (
+                            ("encode", lambda: dcae.encode(fields.to(dtype),
+                                                           static.to(dtype))),
+                            ("decode", lambda: dcae.decode(z.to(dtype)))):
+                        _reset_conv_launches()
+                        outs[mode, stage] = fn().float()
+                        launches[mode, stage] = _conv_launches()
+        torch.cuda.synchronize()
+        rec = {"phase": "dcae_parity", "dtype": dname, "B": 2, "tol": DCAE_TOL[dname],
+               "expected_launches": expected}
+        if dtype == torch.bfloat16:
+            # which mode is nearer the truth: both against an fp32 run (the
+            # fp32 kernels) of the same rounded weights and inputs
+            dcae = dcae.float()
+            with torch.inference_mode():
+                truth = {"encode": dcae.encode(fields.to(dtype).float(),
+                                               static.to(dtype).float()),
+                         "decode": dcae.decode(z.to(dtype).float())}
+            rec["rel_l2_to_fp32"] = {
+                stage: {mode: ((outs[mode, stage] - t).norm() / t.norm()).item()
+                        for mode in ("kernel", "library")}
+                for stage, t in truth.items()}
+            del truth
+        ok = True
+        for stage in ("encode", "decode"):
+            a, b = outs["kernel", stage], outs["library", stage]
+            rec[stage] = {"rel_l2": ((a - b).norm() / b.norm()).item(),
+                          "max_abs_err": (a - b).abs().max().item(),
+                          "finite": bool(torch.isfinite(a).all()),
+                          "launches": launches["kernel", stage]}
+            ok &= (rec[stage]["finite"] and rec[stage]["rel_l2"] <= DCAE_TOL[dname]
+                   and launches["kernel", stage] == expected[stage]
+                   and not any(launches["library", stage].values()))
+        emit(rec)
+        if not ok:
+            raise AssertionError(f"DCAE parity {dname}: {rec}")
+        counts = expected
+        del dcae, outs
+        torch.cuda.empty_cache()
+    return counts
+
+
+def decode_seconds(dcae, frames, mode):
+    """(wall seconds, result) of one decode of ``frames`` under ``mode``,
+    after one warm-up decode (library handles, algorithm choices)."""
+    import torch
+
+    with conv_mode(mode), torch.inference_mode():
+        dcae.decode(frames)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = dcae.decode(frames)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+
+def decode_both_modes(dcae, frames, chunk):
+    """The decode of ``frames``, ``chunk`` at a time, under both conv modes:
+    ({mode: seconds}, relative L2 of the kernel result to the library one)."""
+    import torch
+
+    seconds, num, den = {"kernel": 0.0, "library": 0.0}, 0.0, 0.0
+    for i in range(0, frames.shape[0], chunk):
+        outs = {}
+        for mode in seconds:
+            s, outs[mode] = decode_seconds(dcae, frames[i:i + chunk], mode)
+            seconds[mode] += s
+        a, b = outs["kernel"].float(), outs["library"].float()
+        if not torch.isfinite(a).all():
+            raise AssertionError("decode under the kernels is not finite")
+        num += (a - b).square().sum().item()
+        den += b.square().sum().item()
+        del outs, a, b
+    return seconds, math.sqrt(num / den)
 
 
 def bound(flops, nbytes, peak, bw):
@@ -706,18 +1098,31 @@ def main_path_phase(reps):
 
     fa.norm_rope.launches = 0
     fa.fused_attention.launches = 0
+    _reset_conv_launches()
     torch.cuda.reset_peak_memory_stats()
     stats = {}
     t0 = time.perf_counter()
     acc, mean = bench["full_forecast"](4, stats)
     total_s = time.perf_counter() - t0
     launches = {"norm_rope": fa.norm_rope.launches,
-                "fused_attention": fa.fused_attention.launches}
-    expected = 7 * (2 * rcfg.num_inference_steps - 1) * rcfg.num_repetitions
+                "fused_attention": fa.fused_attention.launches,
+                **_conv_launches()}
+    n_attn = 7 * (2 * rcfg.num_inference_steps - 1) * rcfg.num_repetitions
+    enc = sphere_conv_counts(bench["dcae"].encoder)
+    dec = sphere_conv_counts(bench["dcae"].decoder)
+    expected = {"norm_rope": n_attn, "fused_attention": n_attn,
+                **{k: enc[k] + rcfg.num_repetitions * dec[k] for k in enc}}
+    # the decode of one repetition's 80 frames under both conv modes
+    frames = torch.randn(80, 15, 30, 84, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1)
+                         ).to(torch.bfloat16)
+    decode_s, decode_rel_l2 = decode_both_modes(bench["dcae"], frames, 80)
     emit({"phase": "main_path", "repetitions": rcfg.num_repetitions,
           "members": rcfg.ensemble_size, "setup_s": setup_s,
           "encode_s": stats["encode_s"][0],
           "repetition_s": stats["repetition_s"], "decode_s": stats["decode_s"],
+          "decode_80_frames_s": decode_s,
+          "decode_80_frames_rel_l2": decode_rel_l2, "tol": DCAE_TOL["bfloat16"],
           "forecast_s": total_s, "acc": acc, "mean": mean,
           "traj_shape": stats["traj_shape"], "decode_shape": stats["decode_shape"],
           "launches": launches, "expected_launches": expected,
@@ -726,19 +1131,153 @@ def main_path_phase(reps):
         raise AssertionError(f"trajectory shape {stats['traj_shape']}")
     if stats["decode_shape"] != (80, 120, 240, 84):
         raise AssertionError(f"decode shape {stats['decode_shape']}")
-    for name, n in launches.items():
-        if n != expected:
-            raise AssertionError(f"{name}: {n} launches, expected {expected}")
+    if launches != expected:
+        raise AssertionError(f"launches {launches}, expected {expected}")
+    if not decode_rel_l2 <= DCAE_TOL["bfloat16"]:
+        raise AssertionError(f"decode of 80 frames, kernel against library: "
+                             f"relative L2 {decode_rel_l2}")
     return launches, bench
+
+
+def forecast_phase(tmp):
+    """``cli.pred_rollout`` at full width from hub directories the port
+    writes: the Heun sampler with decode, then the DPM sampler."""
+    import numpy as np
+    import torch
+
+    from ladcast_torch import static_data
+    from ladcast_torch.cli import pred_rollout
+    from ladcast_torch.config import DCAEConfig, ladcast_375m_config
+    from ladcast_torch.models import hub
+    from ladcast_torch.models.dcae import build_dcae
+    from ladcast_torch.models.ladcast_dit import build_dit
+    from ladcast_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    dit_dir, dcae_dir = os.path.join(tmp, "dit"), os.path.join(tmp, "dcae")
+    t0 = time.perf_counter()
+    dit = build_dit(ladcast_375m_config(), dev, torch.float32, seed=21)
+    hub.save_pretrained(dit_dir, "dit", ladcast_375m_config(), dit.state_dict(),
+                        max_shard_bytes=512 * 2**20)
+    n_dit = sum(p.numel() for p in dit.parameters())
+    del dit
+    dcae = build_dcae(DCAEConfig(), dev, torch.float32, seed=22)
+    hub.save_pretrained(dcae_dir, "dcae", DCAEConfig(), dcae.state_dict())
+    n_dcae = sum(p.numel() for p in dcae.parameters())
+    dcae = dcae.to(torch.bfloat16)  # the pipeline's cast of the same weights
+    fm, fs = static_data.era5_mean_std()
+    rng = np.random.RandomState(23)
+    raw = (rng.randn(3, 120, 240, 84) * fs + fm).astype(np.float32)
+    raw[:, :40, :40, 82] = np.nan  # SST over land
+    stamps = [2018010100, 2018010106, 2018010112]
+    data = os.path.join(tmp, "era5.npz")
+    np.savez(data, fields=raw, timestamps=np.asarray(stamps, np.int64))
+    shards = sorted(f for f in os.listdir(dit_dir) if f.endswith(".safetensors"))
+    emit({"phase": "forecast_setup", "write_s": time.perf_counter() - t0,
+          "dit_parameters": n_dit, "dcae_parameters": n_dcae, "dit_files": shards,
+          "dcae_files": sorted(os.listdir(dcae_dir))})
+    if len(shards) < 2 or not os.path.isfile(os.path.join(dit_dir, hub.INDEX_NAME)):
+        raise AssertionError(f"the DiT was not written index-sharded: {shards}")
+
+    # what the encoder gives for these fields: the t=0 frame of every file
+    norm = (raw - fm) / fs
+    norm = torch.from_numpy(np.where(np.isnan(norm), -2.0, norm).astype(np.float32))
+    static = torch.from_numpy(static_data.static_conditioning_tensor("HWC")).to(dev)
+    with torch.inference_mode():
+        z_ref = dcae.encode(norm.to(dev, torch.bfloat16),
+                            static.to(torch.bfloat16)).float().cpu().numpy()
+    enc = sphere_conv_counts(dcae.encoder)
+    dec = sphere_conv_counts(dcae.decoder)
+
+    results = {}
+    runs = (("edm", ["--end_date", "2018-01-01", "--decode"], 1, 7 * 39),
+            ("dpm", ["--end_date", "2018-01-01T12"], 2, 7 * 20))
+    for sampler, extra, n_init, n_attn in runs:
+        out = os.path.join(tmp, f"out_{sampler}")
+        args = pred_rollout.build_parser().parse_args([
+            "--data", data, "--dit_params", dit_dir, "--dcae_params", dcae_dir,
+            "--output_dir", out, "--start_date", "2018-01-01",
+            "--num_samples_per_month", "1", "--ensemble_size", "20",
+            "--num_inference_steps", "20", "--total_lead_time_hour", "24",
+            "--sampler", sampler, "--seed", "3", *extra])
+        _reset_launches(fa)
+        _reset_conv_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        recs = pred_rollout.run(args)
+        wall_s = time.perf_counter() - t0
+        launches = {"norm_rope": fa.norm_rope.launches,
+                    "fused_attention": fa.fused_attention.launches,
+                    **_conv_launches()}
+        decoded = "--decode" in extra
+        # per init time: 7 attentions per DiT call; every sphere conv of the
+        # encoder once, of the decoder once per chunk of 40 of the 80 frames
+        expected = {"norm_rope": n_attn * n_init, "fused_attention": n_attn * n_init,
+                    **{k: n_init * (enc[k] + (2 * dec[k] if decoded else 0))
+                       for k in enc}}
+        inits = [r for r in recs if "rollout_s" in r]
+        rec = {"phase": "forecast", "sampler": sampler, "decode": decoded,
+               "members": 20, "steps": 20, "init_times": [r["init_time"] for r in inits],
+               "load_s": recs[0]["load_s"],
+               "encode_s": [r["encode_s"] for r in inits],
+               "rollout_s": [r["rollout_s"] for r in inits],
+               "decode_s": [r["decode_s"] for r in inits],
+               "per_init_s": [r["seconds"] for r in inits], "run_wall_s": wall_s,
+               "launches": launches, "expected_launches": expected,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+        ok = len(inits) == n_init and launches == expected
+        checks = []
+        for r in inits:
+            ts = r["init_time"]
+            arr = np.load(os.path.join(out, f"latent_{ts}.npy"))
+            z0 = z_ref[stamps.index(ts)]
+            t0_frames = np.moveaxis(arr[:, :, 0], 1, -1)  # (E, h, w, C)
+            chk = {"init_time": ts, "shape": list(arr.shape),
+                   "finite": bool(np.isfinite(arr).all()),
+                   "t0_max_abs_err": float(np.abs(t0_frames - z0).max()),
+                   "t0_absmax": float(np.abs(z0).max()),
+                   "member_spread": float(arr[:, :, 1:].std(axis=0).mean())}
+            ok &= (chk["shape"] == [20, 84, 5, 15, 30] and chk["finite"]
+                   and chk["t0_max_abs_err"] <= 1e-3 * chk["t0_absmax"]
+                   and chk["member_spread"] > 0)
+            if decoded:
+                with np.load(os.path.join(out, f"fields_{ts}.npz")) as bundle:
+                    f = bundle["fields"]
+                    meta = json.loads(str(bundle["meta"]))
+                chk.update(fields_shape=list(f.shape),
+                           fields_finite=bool(np.isfinite(f).all()),
+                           lead_hours=meta["prediction_timedelta_hours"])
+                ok &= (chk["fields_shape"] == [20, 4, 120, 240, 84]
+                       and chk["fields_finite"]
+                       and chk["lead_hours"] == [6, 12, 18, 24])
+                del f
+            checks.append(chk)
+        rec["files"] = checks
+        if decoded:
+            # the same decode (80 frames in chunks of 40) under both modes
+            lat = torch.from_numpy(np.moveaxis(arr[:, :, 1:], 1, -1).copy())
+            frames = lat.reshape(80, 15, 30, 84).to(dev, torch.bfloat16)
+            rec["decode_80_frames_s"], rec["decode_80_frames_rel_l2"] = (
+                decode_both_modes(dcae, frames, 40))
+            rec["tol"] = DCAE_TOL["bfloat16"]
+            ok &= rec["decode_80_frames_rel_l2"] <= DCAE_TOL["bfloat16"]
+        emit(rec)
+        results[sampler] = rec
+        if not ok:
+            raise AssertionError(f"forecast, {sampler}: {rec}")
+        shutil.rmtree(out)
+    return results
 
 
 # kernel-name fragments -> category, first match wins
 CATEGORIES = [("fused_attention", ("fa_bf16_kernel", "fa_f32_kernel")),
               ("flash_bwd", ("bwd_dq_", "bwd_dkv_")),
               ("norm_rope", ("norm_rope_kernel",)),
+              ("dense_conv (K4)", ("conv_bf16_kernel", "conv_f32_kernel")),
+              ("depthwise_conv (K5)", ("dw_kernel",)),
               ("foreach (AdamW, EMA, norms)", ("multi_tensor_apply",)),
-              ("conv", ("fprop", "dgrad", "conv", "winograd", "nchwToNhwc",
-                        "nhwcToNchw")),
+              ("cudnn_conv", ("fprop", "dgrad", "conv", "winograd", "nchwToNhwc",
+                              "nhwcToNchw")),
               ("gemm", ("nvjet", "gemm", "xmma", "cutlass", "s16816", "wgmma")),
               ("reduction", ("reduce", "norm", "softmax")),
               ("copy_cat", ("CatArray", "Copy", "copy", "flip", "roll",
@@ -795,6 +1334,8 @@ def main():
     ap.add_argument("--profile", action="store_true",
                     help="profile one more repetition of the main path "
                          "and 4 more training steps")
+    ap.add_argument("--records", default=None, metavar="FILE",
+                    help="also write every JSON record to FILE")
     args = ap.parse_args()
 
     import torch
@@ -810,6 +1351,11 @@ def main():
               file=sys.stderr)
         return 2
 
+    if args.records:
+        global RECORDS
+        RECORDS = Path(args.records)
+        RECORDS.parent.mkdir(parents=True, exist_ok=True)
+        RECORDS.write_text("")
     card = nvidia_smi_line()
     name = torch.cuda.get_device_name(0)
     peaks = next(p[1:] for p in PEAKS if p[0] in name)
@@ -824,7 +1370,11 @@ def main():
 
     t0 = time.perf_counter()
     results = kernel_phase(peaks)
+    results["flash_attention"], k6_launches = flash_plain_phase(peaks)
     emit({"phase": "kernel_done", "wall_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    results.update(conv_kernel_phase(peaks))
+    emit({"phase": "conv_kernel_done", "wall_s": time.perf_counter() - t0})
     t0 = time.perf_counter()
     results.update(backward_kernel_phase(peaks))
     emit({"phase": "backward_kernel_done", "wall_s": time.perf_counter() - t0})
@@ -834,6 +1384,9 @@ def main():
     t0 = time.perf_counter()
     grad_parity_phase()
     emit({"phase": "grad_parity_done", "wall_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    dcae_parity_phase()
+    emit({"phase": "dcae_parity_done", "wall_s": time.perf_counter() - t0})
     launches, bench = main_path_phase(args.reps)
     if args.profile:
         profile_phase("inference", lambda: bench["full_forecast"](6))
@@ -843,34 +1396,50 @@ def main():
         training = training_phase(tmp, args.profile)
     emit({"phase": "training_done", "wall_s": time.perf_counter() - t0})
     train_launches = training["kernel"]["launches"]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        forecast = forecast_phase(tmp)
+    emit({"phase": "forecast_done", "wall_s": time.perf_counter() - t0})
+    forecast_launches = forecast["edm"]["launches"]
 
     src = "ladcast_tpu/ops/pallas/flash_attention.py"
     meta = {"norm_rope": ("ladcast_torch/csrc/norm_rope.cu", f"{src}:70"),
             "fused_attention": ("ladcast_torch/csrc/fused_attention.cu", f"{src}:113"),
+            "fused_attention_lse": ("ladcast_torch/csrc/fused_attention.cu",
+                                    f"{src}:163"),
             "flash_bwd_dq": ("ladcast_torch/csrc/flash_bwd.cu", f"{src}:279"),
-            "flash_bwd_dkv": ("ladcast_torch/csrc/flash_bwd.cu", f"{src}:318")}
+            "flash_bwd_dkv": ("ladcast_torch/csrc/flash_bwd.cu", f"{src}:318"),
+            "dense_conv": ("ladcast_torch/csrc/dense_conv.cu",
+                           "ladcast_tpu/ops/pallas/dense_conv.py:83"),
+            "depthwise_conv": ("ladcast_torch/csrc/depthwise_conv.cu",
+                               "ladcast_tpu/ops/pallas/depthwise_conv.py:101"),
+            "flash_attention": ("ladcast_torch/csrc/flash_plain.cu", f"{src}:601")}
 
-    def entry(kname, recs, path_launches):
-        main = next(r for r in recs if r["case"] == "dual_2250"
-                    and r["dtype"] == "bfloat16")
+    def entry(kname, recs, path_launches, main_case="dual_2250", batch=None):
+        main = next(r for r in recs if r["case"] == main_case
+                    and r["dtype"] == "bfloat16" and r.get("circular", True)
+                    and batch in (None, r["B"]))
         return {"name": kname, "route": "cuda", "source": meta[kname][0],
                 "replaces": meta[kname][1], "launches": path_launches,
                 "max_abs_err": max(r["max_abs_err"] for r in recs),
                 "ms": main["ms"], "plain_ms": main["plain_ms"],
                 "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-                "library_ms": main["library_ms"]}
+                "library_ms": main["library_ms"], "case": main_case}
 
-    # launches: the inference path's for K1 and K2, the training path's
-    # (kernel backward) for K3; each entry also names its training launches
+    # launches: the bench path's for K1 and K2, the training path's (kernel
+    # backward) for K1-lse and K3, the forecast path's (Heun with decode)
+    # for K4 and K5, the op's own call for K6; the entries of kernels that
+    # several paths run also name the other paths' launches
     summary = []
     for kname in ("norm_rope", "fused_attention"):
         e = entry(kname, results[kname], launches[kname])
         e["training_launches"] = train_launches[kname]
+        e["forecast_launches"] = forecast_launches[kname]
         summary.append(e)
-    lse = entry("fused_attention", results["fused_attention_lse"],
-                train_launches["fused_attention_lse"])
-    summary[1]["lse_variant"] = {k: lse[k] for k in (
-        "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+    e = entry("fused_attention_lse", results["fused_attention_lse"],
+              train_launches["fused_attention_lse"])
+    e["batch"] = 4
+    summary.append(e)
     pair = next(r for r in results["flash_bwd_pair"] if r["case"] == "dual_2250"
                 and r["dtype"] == "bfloat16")
     for kname in ("flash_bwd_dq", "flash_bwd_dkv"):
@@ -880,6 +1449,15 @@ def main():
         e["pair"] = {k: pair[k] for k in ("ms", "plain_ms", "library_ms",
                                           "bound_ms", "bound_by")}
         summary.append(e)
+    for kname in ("dense_conv", "depthwise_conv"):
+        case, batch = KERNEL_LINE_CASES[kname]
+        e = entry(kname, results[kname], forecast_launches[kname], case, batch)
+        e["batch"] = batch
+        e["bench_launches"] = launches[kname]
+        summary.append(e)
+    e = entry("flash_attention", results["flash_attention"], k6_launches, "s2250")
+    e["batch"] = 2
+    summary.append(e)
     print(card, flush=True)
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

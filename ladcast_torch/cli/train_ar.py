@@ -60,6 +60,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--latents", default=None)
     ap.add_argument("--output_dir", default=None)
     ap.add_argument("--resume", default=None, help="'latest' or a step")
+    ap.add_argument("--init_weights", default=None,
+                    help="weights-only warm start from a diffusers hub "
+                         "directory, a .safetensors file or a checkpoint "
+                         "directory of this trainer: parameters and EMA "
+                         "loaded, optimizer and step fresh; ignored when "
+                         "--resume is given")
+    ap.add_argument("--hub_export", action="store_true",
+                    help="at each checkpoint, also write the diffusers-layout "
+                         "model directories <out>/hub/ar_model{,_ema}")
     ap.add_argument("--num_steps", type=int, default=None)
     ap.add_argument("--num_push_forward_steps", type=int, default=1)
     ap.add_argument("--lat_weighted_loss", action="store_true")
@@ -78,8 +87,6 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--reader", default="auto", choices=["auto", "native", "mmap"])
     ap.add_argument("--val_latents", default=None)
     ap.add_argument("--val_every", type=int, default=0)
-    ap.add_argument("--hub_export", action="store_true")
-    ap.add_argument("--init_weights", default=None)
     ap.add_argument("--mesh", default=None)
     ap.add_argument("--zero", action=argparse.BooleanOptionalAction, default=None)
     return ap
@@ -92,14 +99,28 @@ _NOT_PORTED = [
     (lambda a: a.val_every and a.val_latents,
      "--val_every with --val_latents: train/validation.py waits for "
      "ROADMAP.md Queue 1 item M11 (training, validation)"),
-    (lambda a: a.hub_export,
-     "--hub_export: models/hub.py waits for ROADMAP.md Queue 1 item M9"),
-    (lambda a: a.init_weights,
-     "--init_weights: the checkpoint-layout loaders wait for ROADMAP.md "
-     "Queue 1 item M9"),
     (lambda a: a.mesh or a.zero,
      "--mesh / --zero: parallelism waits for ROADMAP.md Queue 1 item M12"),
 ]
+
+
+def export_hub(hub_dir: str, model_cfg, tcfg: ARTrainConfig, state) -> None:
+    """The diffusers-layout export of a training state: ``ar_model/`` and,
+    with EMA, ``ar_model_ema/`` with the EMA metadata in its config.json,
+    as the reference's training hooks write them."""
+    from ladcast_torch.models import hub
+
+    hub.save_pretrained(os.path.join(hub_dir, "ar_model"), "dit", model_cfg,
+                        state.model.state_dict())
+    if state.ema is not None:
+        names = [n for n, _ in state.model.named_parameters()]
+        hub.save_pretrained(
+            os.path.join(hub_dir, "ar_model_ema"), "dit", model_cfg,
+            dict(zip(names, state.ema.params)),
+            ema_metadata={"decay": tcfg.ema_max_decay, "power": tcfg.ema_power,
+                          "inv_gamma": tcfg.ema_inv_gamma,
+                          "update_after_step": tcfg.ema_update_after_step,
+                          "optimization_step": int(state.step)})
 
 
 def run(cfg: dict, args: argparse.Namespace) -> dict:
@@ -176,6 +197,15 @@ def run(cfg: dict, args: argparse.Namespace) -> dict:
     if args.resume:
         ckpt.restore_state(mgr, state,
                            None if args.resume == "latest" else int(args.resume))
+    elif args.init_weights:
+        from ladcast_torch.cli.pred_rollout import _load_any_params
+
+        raw, _ = _load_any_params(args.init_weights, "dit", model_cfg)
+        state.model.load_state_dict(raw, strict=True)
+        if state.ema is not None:
+            with torch.no_grad():
+                torch._foreach_copy_(state.ema.params,
+                                     list(state.model.parameters()))
     start_step = state.step
     logger = MetricLogger(out_dir, config=cfg)
     ckpt_every = gen_cfg.get("checkpointing_steps", 50000)
@@ -208,6 +238,9 @@ def run(cfg: dict, args: argparse.Namespace) -> dict:
             if step % ckpt_every == 0 or step == num_steps:
                 with timer.phase("checkpoint"):
                     ckpt.save_state(mgr, step, state)
+                    if args.hub_export:
+                        export_hub(os.path.join(out_dir, "hub"), model_cfg,
+                                   tcfg, state)
     finally:
         it.close()
         logger.close()

@@ -1,7 +1,8 @@
 """Typed configuration dataclasses of the PyTorch port.
 
 The port's own copies of ``ladcast_tpu.config``'s ``DCAEConfig``,
-``LaDCastDiTConfig``, ``ladcast_375m_config``, ``EDMSchedulerConfig``,
+``LaDCastDiTConfig``, ``ladcast_375m_config``, ``ladcast_1p6b_config``,
+``EDMSchedulerConfig``,
 ``NoiseSamplerConfig``, ``RolloutConfig`` and ``config_from_dict``, with
 the same fields and defaults (the shipped configs/DC_AE_84_pretrain.yaml
 and configs/ladcast_375M.yaml settings). Frozen, so a config is hashable
@@ -143,6 +144,14 @@ class LaDCastDiTConfig:
 def ladcast_375m_config(**overrides) -> LaDCastDiTConfig:
     """configs/ladcast_375M.yaml:2-31."""
     return LaDCastDiTConfig(**overrides)
+
+
+def ladcast_1p6b_config(**overrides) -> LaDCastDiTConfig:
+    """configs/ladcast_1.6B.yaml:2-31."""
+    base = dict(num_attention_heads=16, num_layers=5, num_single_layers=10,
+                num_refiner_layers=3)
+    base.update(overrides)
+    return LaDCastDiTConfig(**base)
 
 
 @dataclass(frozen=True)

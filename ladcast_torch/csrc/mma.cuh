@@ -1,6 +1,7 @@
-// Shared device helpers of the attention kernels (forward and backward):
-// cp.async copies into shared memory, ldmatrix loads of mma fragments, and
-// the bf16 mma.sync.m16n8k16 tensor-core product with fp32 accumulation.
+// Shared device helpers of the tensor-core kernels (the attention forward
+// and backward, the dense conv): cp.async copies into shared memory,
+// ldmatrix loads of mma fragments, and the bf16 mma.sync.m16n8k16
+// tensor-core product with fp32 accumulation.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -16,6 +17,24 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
                :: "r"(smem_addr(smem)), "l"(gmem));
+}
+
+// 16 bytes when `valid`, else 16 zero bytes (src-size 0: nothing is read, so
+// `gmem` may be any address inside the tensor).
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
+                                                 bool valid) {
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(smem)), "l"(gmem), "r"(n));
+}
+
+// The same for BYTES = 4 or 8 (cp.async.ca: the only form below 16 bytes).
+template <int BYTES>
+__device__ __forceinline__ void cp_async_small_zfill(void* smem, const void* gmem,
+                                                     bool valid) {
+  const int n = valid ? BYTES : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+               :: "r"(smem_addr(smem)), "l"(gmem), "n"(BYTES), "r"(n));
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -1,10 +1,14 @@
 """Host-side timestamp helpers (the part of
-``ladcast_tpu/data/time_utils.py`` the AR dataset needs). Timestamps are
-YYYYMMDDHH ints."""
+``ladcast_tpu/data/time_utils.py`` that the AR dataset and the forecast
+CLI need). Timestamps are YYYYMMDDHH ints; plain datetime and numpy."""
 
 from __future__ import annotations
 
+import calendar
 from datetime import datetime, timedelta
+from typing import List, Sequence
+
+import numpy as np
 
 
 def int_to_datetime(ts_int: int) -> datetime:
@@ -25,3 +29,70 @@ def year_progress(dt: datetime) -> float:
     start = datetime(dt.year, 1, 1)
     end = datetime(dt.year + 1, 1, 1)
     return (dt - start).total_seconds() / (end - start).total_seconds()
+
+
+def rollout_year_progress(init_ts_int: int, num_repetitions: int,
+                          hours_per_repetition: int) -> np.ndarray:
+    """Year progress of each AR repetition of a rollout: the sampler's
+    timestamp advances by ``hours_per_repetition`` per repetition from the
+    init time. (num_repetitions,) float32."""
+    t0 = int_to_datetime(init_ts_int)
+    return np.asarray(
+        [year_progress(t0 + timedelta(hours=i * hours_per_repetition))
+         for i in range(num_repetitions)], dtype=np.float32)
+
+
+def _sample_month_days(year: int, month: int,
+                       num_samples_per_month: int) -> np.ndarray:
+    """The reference's per-month day selection: linspace over
+    [1, last_day) (endpoint excluded), rounded, first day forced to 1."""
+    _, last_day = calendar.monthrange(year, month)
+    days = np.linspace(1, last_day, num_samples_per_month, endpoint=False)
+    days = np.round(days).astype(int)
+    days[0] = 1
+    return days
+
+
+def filter_eval_timestamps(years: Sequence[int], num_samples_per_month: int,
+                           hours: Sequence[int] = (0, 12)) -> List[int]:
+    """Evenly spaced evaluation init times: per month,
+    ``num_samples_per_month`` days at 00z and 12z. Sorted YYYYMMDDHH ints."""
+    out: List[int] = []
+    for year in years:
+        for month in range(1, 13):
+            for day in _sample_month_days(year, month, num_samples_per_month):
+                for hour in hours:
+                    out.append(datetime_to_int(datetime(year, month, int(day), hour)))
+    return sorted(out)
+
+
+def date_str_to_int(s: str) -> int:
+    """'YYYY-MM-DD[Thh]' -> YYYYMMDDHH int; a date alone gets hour 00."""
+    digits = "".join(c for c in s if c.isdigit())
+    if len(digits) == 8:
+        digits += "00"
+    if len(digits) != 10:
+        raise ValueError(f"expected YYYY-MM-DD[Thh], got {s!r}")
+    return int(digits)
+
+
+def filter_eval_timestamps_range(start: int, end: int,
+                                 num_samples_per_month: int,
+                                 hours: Sequence[int] = (0, 12)) -> List[int]:
+    """Date-range form of :func:`filter_eval_timestamps`: for every month
+    that meets [start, end], its sampled days at 00z / 12z, keeping the
+    timestamps <= end. As in the reference, sampled days before ``start``
+    in the first month are kept: it clips against the range's end only."""
+    sd, ed = int_to_datetime(start), int_to_datetime(end)
+    if sd > ed:
+        raise ValueError(f"start {start} is after end {end}")
+    out: List[int] = []
+    year, month = sd.year, sd.month
+    while (year, month) <= (ed.year, ed.month):
+        for day in _sample_month_days(year, month, num_samples_per_month):
+            for hour in hours:
+                ts = datetime_to_int(datetime(year, month, int(day), hour))
+                if ts <= end:
+                    out.append(ts)
+        year, month = (year + 1, 1) if month == 12 else (year, month + 1)
+    return sorted(out)

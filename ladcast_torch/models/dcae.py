@@ -7,8 +7,9 @@ channels (84 dynamic + 5 static), an 84-channel latent, 4 stages
 (252, 504, 504, 1008), pixel (un)shuffle resampling with channel-average /
 repeat shortcuts, and spherical-boundary convolutions throughout.
 
-Activations are NHWC, as in the JAX package; convolutions run on the
-channels-last NCHW view of the same storage (``ops.sphere``). Parameters
+Activations are NHWC, as in the JAX package; the sphere convolutions run
+on the hand-written conv kernels or, when asked, on ``F.conv2d``
+(``ops.sphere.CONV_MODE``). Parameters
 keep the reference names and torch layouts: OIHW convs, 1x1 ``Conv2d``s
 in GLUMBConv (``conv_inverted``, ``conv_point``, applied as Dense over
 channels) and the grouped 1x1 ``proj_out`` of the Sana multiscale
@@ -40,7 +41,7 @@ from ladcast_torch.models.layers import (
 )
 from ladcast_torch.ops.norms import rms_norm
 from ladcast_torch.ops.pixel_shuffle import pixel_shuffle, pixel_unshuffle
-from ladcast_torch.ops.sphere import sphere_conv2d
+from ladcast_torch.ops.sphere import kernel_convs, pack_weight, sphere_conv2d
 
 
 class SphereConv(nn.Conv2d):
@@ -51,12 +52,27 @@ class SphereConv(nn.Conv2d):
                  kernel_size: int = 3, bias: bool = True, groups: int = 1):
         super().__init__(in_channels, out_channels, kernel_size,
                          groups=groups, bias=bias)
+        self._packed = None  # (key, the kernels' layout of the weight)
+
+    def _packed_weight(self, dtype):
+        """``pack_weight`` of the weight in ``dtype``, kept while the weight
+        stays as it is. Under grad mode it is repacked on every call: the
+        repacking is then part of the graph."""
+        w = self.weight
+        if torch.is_grad_enabled():
+            return pack_weight(w.to(dtype))
+        key = (w.data_ptr(), w._version, w.device, dtype)
+        if self._packed is None or self._packed[0] != key:
+            self._packed = (key, pack_weight(w.detach().to(dtype)))
+        return self._packed[1]
 
     def forward(self, x):
+        # only the kernels read the packed layout
+        packed = self._packed_weight(x.dtype) if kernel_convs() else None
         return sphere_conv2d(
             x, self.weight.to(x.dtype),
             None if self.bias is None else self.bias.to(x.dtype),
-            groups=self.groups)
+            groups=self.groups, packed=packed)
 
 
 class Conv1x1(nn.Conv2d):

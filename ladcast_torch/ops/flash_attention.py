@@ -15,6 +15,11 @@ version:
     backward over the pre-normed q and k; :func:`flash_bwd_plain` is the
     plain version of both, :func:`flash_bwd_dq_plain` and
     :func:`flash_bwd_dkv_plain` of each alone.
+  - :func:`flash_attention_forward` (``csrc/flash_plain.cu``, the TPU
+    ``_fa_plain_kernel``): plain fp32 flash attention without norm or
+    RoPE, any head size up to 256; :func:`flash_attention` is its
+    differentiable entry (backward: the VJP of
+    :func:`attention_composite`).
 
 :func:`fused_norm_rope_attention` chains the forward kernels as
 ``_fused_impl`` does, inside :class:`FusedNormRopeAttention`, the
@@ -44,11 +49,17 @@ from typing import Optional
 
 import torch
 
-from ladcast_torch.ops import _build
+from ladcast_torch.ops._launch import (
+    DTYPE_CODES as _DTYPE_CODES,
+    check_cuda_inputs,
+    check_launch as _launched,
+    fn as _fn,
+    refuse_grad,
+    with_vjp as _with_vjp,
+)
 from ladcast_torch.ops.rope import rotate_pairs
 
-HEAD_DIM = 128  # the only head size the kernels take
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIM = 128  # the only head size of the fused norm+RoPE kernels
 
 
 def _norm_rope_f32(x, w, cos, sin, eps):
@@ -275,21 +286,6 @@ def _kernel_backward() -> bool:
     return BWD_MODE == "kernel"
 
 
-def _with_vjp(fn, args, needs):
-    """fn(*args), detached, and its pullback to the args flagged in needs
-    (None for the others)."""
-    xs = [a.detach().requires_grad_(n) for a, n in zip(args, needs)]
-    with torch.enable_grad():
-        y = fn(*xs)
-
-    def pull(cotangent):
-        wrt = [x for x, n in zip(xs, needs) if n]
-        got = iter(torch.autograd.grad(y, wrt, cotangent) if wrt else ())
-        return [next(got) if n else None for n in needs]
-
-    return y.detach(), pull
-
-
 class FusedNormRopeAttention(torch.autograd.Function):
     """``fused_norm_rope_attention`` with its backward (``_fnra_fwd`` /
     ``_fnra_bwd``). The forward runs K2 on k, then K1, with the lse rows
@@ -373,26 +369,104 @@ def composite_norm_rope_attention(q, k, v, qcos, qsin, qw, kcos, ksin, kw,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v).to(q.dtype)
 
 
+# --------------------------------------------------------------- K6 -------
+
+MAX_HEAD_DIM = 256  # of the plain flash attention
+
+
+def attention_composite(q, k, v, bias: Optional[torch.Tensor] = None):
+    """Non-causal softmax attention, BSHD, as a composite (the JAX
+    ``_xla_attention`` / ``dot_product_attention(impl="xla")``): fp32 logits
+    of the inputs as they are, plus ``bias`` (broadcastable to (B, H, Sq,
+    Sk)), fp32 softmax, P cast to v's dtype before P.V."""
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if bias is not None:
+        logits = logits + bias.float()
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def flash_attention_plain(q, k, v):
+    """Plain version of :func:`flash_attention_forward`, in the kernel's
+    order: every input upcast to fp32, Q scaled in fp32, fp32 logits,
+    softmax and P.V; the output is cast to the input dtype."""
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
+    m = logits.amax(-1, keepdim=True)
+    p = torch.exp(logits - m)
+    acc = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    return (acc / p.sum(-1).permute(0, 2, 1)[..., None]).to(q.dtype)
+
+
+def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor) -> torch.Tensor:
+    """Softmax attention of q (B, Sq, H, D) over k, v (B, Sk, H, D) in
+    fp32, D <= 256: the kernel of ``csrc/flash_plain.cu`` on CUDA tensors
+    (counted in ``launches``), the plain version on CPU tensors; the
+    result carries no gradient."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v)
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    if k.shape != (B, Sk, H, D) or v.shape != k.shape:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if Sk == 0:
+        raise ValueError("flash_attention: no keys")
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head size {D} > {MAX_HEAD_DIM}")
+    check_cuda_inputs("flash_attention", (q, k, v))
+    refuse_grad("flash_attention_forward", (q, k, v), "flash_attention")
+    out = torch.empty_like(q)
+    if out.numel():
+        fn = _fn("flash_plain", "ladcast_flash_attention",
+                 [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        _launched("flash_attention", fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
+            Sk, H, D, 1.0 / (D ** 0.5), _DTYPE_CODES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream))
+        flash_attention_forward.launches += 1
+    return out
+
+
+flash_attention_forward.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """:func:`flash_attention_forward` with the VJP of the composite as its
+    backward (``_fa_fwd`` / ``_fa_bwd`` of the JAX module)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return flash_attention_forward(q, k, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        _, pull = _with_vjp(attention_composite, ctx.saved_tensors,
+                            ctx.needs_input_grad)
+        return tuple(pull(g))
+
+
+def flash_attention(q, k, v) -> torch.Tensor:
+    """Plain flash attention (no norm, no RoPE), differentiable."""
+    return FlashAttention.apply(q, k, v)
+
+
 # ------------------------------------------------------------- helpers ----
 
 def _check_cuda(name, tensors, tables, S):
-    """What the kernels take: CUDA, contiguous, 16-byte aligned, one
-    dtype of bf16/fp32, D = 128, fp32 (S, D) tables on the same device."""
+    """What the norm+RoPE attention kernels take: CUDA, contiguous, 16-byte
+    aligned, one dtype of bf16/fp32, D = 128, fp32 (S, D) tables on the
+    same device."""
+    check_cuda_inputs(name, tensors)
     dev = tensors[0].device
-    dtype = tensors[0].dtype
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: tensors on {dev}, expected cpu or cuda")
-    if dtype not in _DTYPE_CODES:
-        raise TypeError(f"{name}: dtype {dtype}, expected bfloat16 or float32")
     for t in tensors:
-        if t.device != dev or t.dtype != dtype:
-            raise ValueError(f"{name}: inputs differ in device or dtype")
         if t.dim() != 4 or t.shape[-1] != HEAD_DIM:
             raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
                              f"(B, S, H, {HEAD_DIM})")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name}: inputs must be contiguous and "
-                             f"16-byte aligned")
     for t in tables:
         if (t.device != dev or t.dtype != torch.float32
                 or tuple(t.shape) != (S, HEAD_DIM) or not t.is_contiguous()
@@ -402,22 +476,6 @@ def _check_cuda(name, tensors, tables, S):
 
 
 def _refuse_grad(name, tensors):
-    """A kernel's result has no grad_fn: refuse rather than drop the
-    gradient silently."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{name}: a CUDA input requires grad, and the kernel's result "
-            f"would carry no gradient; call fused_norm_rope_attention, or "
-            f"run under torch.no_grad()")
-
-
-def _fn(lib: str, symbol: str, argtypes):
-    fn = getattr(_build.load(lib), symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _launched(name: str, rc: int) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    """The norm+RoPE attention kernels' differentiable entry is
+    :func:`fused_norm_rope_attention`."""
+    refuse_grad(name, tensors, "fused_norm_rope_attention")

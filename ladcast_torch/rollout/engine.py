@@ -1,8 +1,13 @@
-"""Autoregressive ensemble rollout, stepped from the host.
+"""Autoregressive ensemble rollout (the port of
+``ladcast_tpu/rollout/engine.py``).
 
 Ensemble members ride the batch dimension of every denoiser call. Each
-repetition denoises ``return_seq_len`` frames with the Heun sampler and
-feeds its last ``input_seq_len`` frames back as the next conditioning.
+repetition denoises ``return_seq_len`` frames with the Heun or the DPM
+sampler (``cfg.sampler_type``) and feeds its last ``input_seq_len`` frames
+back as the next conditioning. :func:`ensemble_rollout` is the single-call
+form (one scanned program in the JAX package; here a loop over
+:func:`make_repetition_fn`, which :func:`ensemble_rollout_hostloop` also
+drives: the two give the same trajectory).
 
 Reproducible ensembles: member i of repetition r draws its noise from its
 own ``torch.Generator``, seeded from (seed, r, i) alone, so member i's
@@ -13,6 +18,7 @@ the rollout against the JAX engine, whose PRNG differs.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -20,7 +26,7 @@ import torch
 
 from ladcast_torch.config import EDMSchedulerConfig, RolloutConfig
 from ladcast_torch.diffusion import edm
-from ladcast_torch.diffusion.samplers import edm_heun_sample
+from ladcast_torch.diffusion.samplers import dpm_multistep_sample, edm_heun_sample
 
 # net_fn(latents (E,T,H,W,C), c_noise (E,), cond (E,Tin,H,W,C), yp (E,)) -> F
 NetFn = Callable[..., torch.Tensor]
@@ -52,9 +58,8 @@ def make_repetition_fn(sched_cfg: EDMSchedulerConfig, cfg: RolloutConfig):
     known (E, T_in, H, W, C); samples (E, T_out, H, W, C) in known's
     dtype; ``noise`` (E, T_out, H, W, C) replaces the seeded draw.
     """
-    if cfg.sampler_type != "edm":
-        raise NotImplementedError(
-            f"sampler {cfg.sampler_type!r}: only the Heun 'edm' sampler is ported")
+    if cfg.sampler_type not in ("edm", "dpm"):
+        raise ValueError(f"sampler {cfg.sampler_type!r}: expected 'edm' or 'dpm'")
     traj_dtype = getattr(torch, cfg.trajectory_dtype)
 
     def rep_fn(net_fn, known, year_progress, rep_seed,
@@ -72,10 +77,15 @@ def make_repetition_fn(sched_cfg: EDMSchedulerConfig, cfg: RolloutConfig):
             f = net_fn(x_in.float(), c_noise.float(), known, yp)
             return edm.precondition_outputs(sched_cfg, x, f.to(x.dtype), sigma)
 
-        samples = edm_heun_sample(
-            sched_cfg, denoised_fn, noise, cfg.num_inference_steps,
-            dtype=traj_dtype,
-            correction_skip_period=cfg.correction_skip_period)
+        if cfg.sampler_type == "edm":
+            samples = edm_heun_sample(
+                sched_cfg, denoised_fn, noise, cfg.num_inference_steps,
+                dtype=traj_dtype,
+                correction_skip_period=cfg.correction_skip_period)
+        else:
+            samples = dpm_multistep_sample(
+                sched_cfg, denoised_fn, noise, cfg.num_inference_steps,
+                dtype=traj_dtype, init_scale=cfg.dpm_init_scale)
         samples = samples.to(known.dtype)
         return samples[:, -T_in:], samples
 
@@ -123,3 +133,40 @@ def ensemble_rollout_hostloop(
                                 stream_seed(seed, r + 1), noise)
         outs.append(samples)
     return torch.cat(outs, dim=1)[:, : cfg.total_num_steps]
+
+
+def ensemble_rollout(
+    net_fn: NetFn,
+    known_latents: torch.Tensor,
+    year_progress: Sequence[float],
+    seed: int,
+    sched_cfg: EDMSchedulerConfig,
+    cfg: RolloutConfig,
+    *,
+    latent_std: Optional[torch.Tensor] = None,
+    rep_noise: Optional[torch.Tensor] = None,
+    pert_noise: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The whole AR ensemble forecast in one call: (E, T_in, H, W, C)
+    normalized conditioning latents -> (E, total_num_steps, H, W, C)
+    normalized forecast frames (lead times step_size_hour .. total; the t=0
+    frame is the caller's input). ``seed`` takes the place of the JAX key;
+    the noise arguments are those of :func:`ensemble_rollout_hostloop`,
+    whose trajectory this equals."""
+    if rep_noise is not None:
+        E, _, H, W, C = known_latents.shape
+        want = (cfg.num_repetitions, E, cfg.return_seq_len, H, W, C)
+        if tuple(rep_noise.shape) != want:
+            raise ValueError(f"rep_noise {tuple(rep_noise.shape)}, expected {want}")
+    return ensemble_rollout_hostloop(
+        make_repetition_fn(sched_cfg, cfg), net_fn, known_latents,
+        year_progress, seed, cfg, latent_std=latent_std, rep_noise=rep_noise,
+        pert_noise=pert_noise)
+
+
+def make_rollout_fn(net_fn: NetFn, sched_cfg: EDMSchedulerConfig,
+                    cfg: RolloutConfig):
+    """``ensemble_rollout`` with the network and the configs bound:
+    (known, year_progress, seed, **noise) -> trajectory."""
+    return functools.partial(ensemble_rollout, net_fn, sched_cfg=sched_cfg,
+                             cfg=cfg)

@@ -1,0 +1,365 @@
+"""The port's conv kernels (K4 dense, K5 depthwise), the plain flash
+attention (K6) and the sphere conv's two modes against the JAX package, in
+fp32 on the CPU, where each wrapper runs its kernel's plain version; and
+an emulation of K4's tile loop that holds chip_smoke.py's bf16 check to
+three injected faults."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from ladcast_torch.ops import attention as t_attn
+from ladcast_torch.ops import dense_conv as t_dc
+from ladcast_torch.ops import depthwise_conv as t_dw
+from ladcast_torch.ops import flash_attention as t_fa
+from ladcast_torch.ops import sphere as t_sphere
+from ladcast_tpu.ops import attention as j_attn
+from ladcast_tpu.ops import sphere as j_sphere
+from ladcast_tpu.ops.pallas import dense_conv as j_dc
+from ladcast_tpu.ops.pallas import depthwise_conv as j_dw
+from ladcast_tpu.ops.pallas.flash_attention import flash_attention as j_flash
+
+SAME3, SAME5 = ((1, 1), (1, 1)), ((2, 2), (2, 2))
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+# ------------------------------------------------------------------ K4 ----
+
+@pytest.mark.parametrize("shape,cout,ksz,pads,circular", [
+    ((2, 8, 12, 89), 21, 3, SAME3, False),    # ragged channels
+    ((2, 8, 12, 89), 21, 3, SAME3, True),
+    ((1, 9, 6, 16), 24, 5, SAME5, True),      # W = 6, odd H, 5x5
+    ((1, 10, 14, 6), 9, 3, ((0, 2), (1, 0)), False),  # asymmetric pads
+    ((2, 9, 12, 4), 7, 3, ((0, 0), (0, 0)), False),   # VALID
+    ((1, 6, 8, 5), 3, 3, ((1, 1), (2, 0)), True),     # asymmetric wrap
+])
+def test_dense_conv_matches_pallas_interpret(shape, cout, ksz, pads, circular):
+    """The plain version of K4 (what the wrapper runs on CPU tensors)
+    against the TPU kernel in interpret mode; fp32 sums of up to 9 * 89
+    products of O(1) values agree to 1e-4."""
+    rng = np.random.RandomState(0)
+    x = rng.randn(*shape).astype(np.float32)
+    k = (rng.randn(ksz, ksz, shape[-1], cout) * 0.2).astype(np.float32)
+    want = np.asarray(j_dc.dense_conv_interpret(jnp.asarray(x), jnp.asarray(k),
+                                                pads, circular))
+    before = t_dc.dense_conv_forward.launches
+    got = t_dc.dense_conv(_t(x), _t(k), pads, circular).numpy()
+    assert t_dc.dense_conv_forward.launches == before  # CPU: plain version
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-5)
+    np.testing.assert_array_equal(
+        got, t_dc.dense_conv_plain(_t(x), _t(k), pads, circular).numpy())
+
+
+@pytest.mark.parametrize("circular", [False, True])
+def test_dense_conv_gradients_match_jax(circular):
+    rng = np.random.RandomState(1)
+    x = rng.randn(2, 6, 8, 5).astype(np.float32)
+    k = (rng.randn(3, 3, 5, 7) * 0.3).astype(np.float32)
+    g = rng.randn(2, 6, 8, 7).astype(np.float32)
+    jx, jk = jax.grad(
+        lambda a, b: jnp.sum(j_dc.dense_conv(a, b, SAME3, circular) * g),
+        argnums=(0, 1))(jnp.asarray(x), jnp.asarray(k))
+    tx, tk = _t(x).requires_grad_(), _t(k).requires_grad_()
+    (t_dc.dense_conv(tx, tk, SAME3, circular) * _t(g)).sum().backward()
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jx), atol=1e-4, rtol=1e-5)
+    np.testing.assert_allclose(tk.grad.numpy(), np.asarray(jk), atol=1e-4, rtol=1e-5)
+
+
+# ------------------------------------------------------------------ K5 ----
+
+@pytest.mark.parametrize("shape,ksz,pads,circular", [
+    ((2, 8, 12, 130), 3, SAME3, False),   # ragged channel block
+    ((2, 8, 12, 130), 3, SAME3, True),
+    ((1, 9, 6, 130), 5, SAME5, True),     # W = 6, odd H, 5x5
+    ((1, 7, 10, 256), 5, SAME5, False),
+    ((1, 8, 10, 128), 3, ((0, 2), (1, 0)), False),
+])
+def test_depthwise_conv_matches_pallas_interpret(shape, ksz, pads, circular):
+    rng = np.random.RandomState(2)
+    x = rng.randn(*shape).astype(np.float32)
+    k = (rng.randn(ksz, ksz, shape[-1]) * 0.3).astype(np.float32)
+    want = np.asarray(j_dw.depthwise_same_conv_interpret(
+        jnp.asarray(x), jnp.asarray(k), pads, circular))
+    before = t_dw.depthwise_same_conv_forward.launches
+    got = t_dw.depthwise_same_conv(_t(x), _t(k), pads, circular).numpy()
+    assert t_dw.depthwise_same_conv_forward.launches == before
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("circular", [False, True])
+def test_depthwise_conv_gradients_match_jax(circular):
+    rng = np.random.RandomState(3)
+    x = rng.randn(2, 6, 8, 9).astype(np.float32)
+    k = (rng.randn(5, 5, 9) * 0.3).astype(np.float32)
+    g = rng.randn(2, 6, 8, 9).astype(np.float32)
+    jx, jk = jax.grad(
+        lambda a, b: jnp.sum(j_dw.depthwise_same_conv(a, b, SAME5, circular) * g),
+        argnums=(0, 1))(jnp.asarray(x), jnp.asarray(k))
+    tx, tk = _t(x).requires_grad_(), _t(k).requires_grad_()
+    (t_dw.depthwise_same_conv(tx, tk, SAME5, circular) * _t(g)).sum().backward()
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jx), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(tk.grad.numpy(), np.asarray(jk), atol=1e-4, rtol=1e-5)
+
+
+def test_conv_wrappers_check_their_inputs():
+    x, k = torch.zeros(1, 4, 6, 3), torch.zeros(3, 3, 3, 2)
+    with pytest.raises(ValueError, match="circular_w needs W pads"):
+        t_dc.dense_conv(x, k, ((1, 1), (1, 0)), True)
+    with pytest.raises(ValueError, match="negative padding"):
+        t_dw.depthwise_same_conv(x, k[..., 0], ((-1, 1), (1, 1)))
+    xm, km = x.to("meta"), k.to("meta")
+    with pytest.raises(ValueError, match="expected cpu or cuda"):
+        t_dc.dense_conv_forward(xm, km, SAME3)
+    with pytest.raises(ValueError, match="expected cpu or cuda"):
+        t_dw.depthwise_same_conv_forward(xm, km[..., 0].contiguous(), SAME3)
+
+
+# -------------------------------------------------------- sphere conv -----
+
+@pytest.mark.parametrize("k,cin,cout,groups", [(3, 5, 7, 1), (5, 4, 6, 1),
+                                               (3, 6, 6, 6), (5, 6, 6, 6)])
+def test_sphere_conv2d_modes_match_jax(k, cin, cout, groups, monkeypatch):
+    """Dense and depthwise, p = 1 and 2: the fused-boundary form on the
+    kernels' plain versions and the 3-slice ``F.conv2d`` form against the
+    JAX sphere conv, and against each other."""
+    rng = np.random.RandomState(k + groups)
+    x = rng.randn(2, 8, 12, cin).astype(np.float32)
+    w_hwio = rng.randn(k, k, cin // groups, cout).astype(np.float32)
+    b = rng.randn(cout).astype(np.float32)
+    want = np.asarray(j_sphere.sphere_conv2d(
+        jnp.asarray(x), jnp.asarray(w_hwio), jnp.asarray(b), groups=groups))
+    w = _t(w_hwio.transpose(3, 2, 0, 1))
+    got = {}
+    for mode in ("kernel", "library"):
+        monkeypatch.setattr(t_sphere, "CONV_MODE", mode)
+        got[mode] = t_sphere.sphere_conv2d(_t(x), w, _t(b), groups=groups).numpy()
+        np.testing.assert_allclose(got[mode], want, atol=1e-4, rtol=1e-5)
+    np.testing.assert_allclose(got["kernel"], got["library"], atol=1e-4, rtol=1e-5)
+    # a kept repacked weight gives the same result
+    monkeypatch.setattr(t_sphere, "CONV_MODE", "kernel")
+    packed = t_sphere.pack_weight(w)
+    np.testing.assert_array_equal(
+        t_sphere.sphere_conv2d(_t(x), w, _t(b), groups=groups, packed=packed).numpy(),
+        got["kernel"])
+
+
+def test_sphere_conv2d_gradients_agree_between_modes(monkeypatch):
+    rng = np.random.RandomState(5)
+    x, w = rng.randn(1, 6, 8, 4).astype(np.float32), rng.randn(4, 1, 5, 5).astype(np.float32)
+    grads = {}
+    for mode in ("kernel", "library"):
+        monkeypatch.setattr(t_sphere, "CONV_MODE", mode)
+        tx, tw = _t(x).requires_grad_(), _t(w).requires_grad_()
+        t_sphere.sphere_conv2d(tx, tw, groups=4).square().sum().backward()
+        grads[mode] = (tx.grad.numpy(), tw.grad.numpy())
+    for a, b in zip(grads["kernel"], grads["library"]):
+        np.testing.assert_allclose(a, b, atol=1e-3, rtol=1e-4)
+
+
+def test_conv_mode_rejects_other_values(monkeypatch):
+    monkeypatch.setattr(t_sphere, "CONV_MODE", "cudnn")
+    with pytest.raises(ValueError, match="CONV_MODE"):
+        t_sphere.sphere_conv2d(torch.zeros(1, 4, 6, 2), torch.zeros(2, 2, 3, 3))
+    monkeypatch.setattr(t_sphere, "CONV_MODE", "kernel")
+    with pytest.raises(ValueError, match="neither dense nor depthwise"):
+        t_sphere.sphere_conv2d(torch.zeros(1, 4, 6, 4), torch.zeros(4, 2, 3, 3),
+                               groups=2)
+
+
+# ------------------------------------------------------------------ K6 ----
+
+@pytest.mark.parametrize("B,S,Sk,H,D", [(1, 130, 130, 3, 64), (2, 75, 150, 2, 128)])
+def test_flash_attention_matches_pallas_interpret(B, S, Sk, H, D):
+    rng = np.random.RandomState(D)
+    q = rng.randn(B, S, H, D).astype(np.float32)
+    k, v = (rng.randn(B, Sk, H, D).astype(np.float32) for _ in range(2))
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)))
+    xla = np.asarray(j_attn.dot_product_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), impl="xla"))
+    before = t_fa.flash_attention_forward.launches
+    plain = t_fa.flash_attention_plain(_t(q), _t(k), _t(v)).numpy()
+    auto = t_attn.dot_product_attention(_t(q), _t(k), _t(v)).numpy()
+    comp = t_attn.dot_product_attention(_t(q), _t(k), _t(v), impl="plain").numpy()
+    assert t_fa.flash_attention_forward.launches == before
+    np.testing.assert_array_equal(auto, plain)  # auto: the flash attention
+    for got in (plain, comp):  # softmax outputs of O(0.1): 1e-5
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(got, xla, atol=1e-5, rtol=1e-5)
+
+
+def test_dot_product_attention_bias_and_gradients():
+    rng = np.random.RandomState(7)
+    q, k, v = (rng.randn(2, 9, 2, 16).astype(np.float32) for _ in range(3))
+    bias = rng.randn(1, 2, 9, 9).astype(np.float32)
+    want = np.asarray(j_attn.dot_product_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(bias), "xla"))
+    got = t_attn.dot_product_attention(_t(q), _t(k), _t(v), _t(bias)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    with pytest.raises(ValueError, match="takes no bias"):
+        t_attn.dot_product_attention(_t(q), _t(k), _t(v), _t(bias), impl="kernel")
+    with pytest.raises(ValueError, match="unknown attention impl"):
+        t_attn.dot_product_attention(_t(q), _t(k), _t(v), impl="pallas")
+    # the flash attention's backward is the VJP of the composite
+    jg = jax.grad(lambda a, b, c: jnp.sum(j_flash(a, b, c) ** 2), argnums=(0, 1, 2))
+    with pltpu.force_tpu_interpret_mode():
+        wants = jg(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    ts = [_t(a).requires_grad_() for a in (q, k, v)]
+    t_attn.dot_product_attention(*ts, impl="kernel").square().sum().backward()
+    for t, w in zip(ts, wants):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), atol=1e-5, rtol=1e-4)
+
+
+# ------------------------------------ chip_smoke's bf16 check of K4 -------
+
+def _tiled_dense_conv(x, w, p, fault=None, bm=128, bk=64):
+    """The CUDA kernel's loop, emulated: tiles of ``bm`` output pixels of a
+    frame running across image rows, the kh*kw taps x Cin in steps of
+    ``bk`` channels, fp32 accumulation of bf16 products, circular W, one
+    cast at the store; with an optional fault injected."""
+    B, H, W, Cin = x.shape
+    kh, kw, _, Cout = w.shape
+    xf = x.float().reshape(B * H, W, Cin)  # rows of all frames, as in memory
+    wf = w.float()
+    out = torch.empty(B, H * W, Cout)
+    pix = torch.arange(H * W)
+    for b in range(B):
+        for m0 in range(0, H * W, bm):
+            oh, ow = pix[m0:m0 + bm] // W, pix[m0:m0 + bm] % W
+            acc = torch.zeros(len(oh), Cout)
+            for dy in range(kh):
+                for dx in range(kw):
+                    if fault == "drop_tap" and (dy, dx) == (2, 1):
+                        continue
+                    ih, iw = oh + dy - p, ow + dx - p
+                    valid = (ih >= 0) & (ih < H)
+                    if fault == "missing_wrap_column":
+                        valid = valid & (iw >= 0) & (iw < W)
+                    if fault == "unmasked_halo_row":
+                        # the rows just outside the frame, as they lie in
+                        # memory: the neighbouring frames' (or, at the ends
+                        # of the buffer, this frame's far) rows
+                        valid = torch.ones_like(valid)
+                    rows = (b * H + ih) % (B * H)
+                    for c0 in range(0, Cin, bk):
+                        a = xf[rows, iw % W, c0:c0 + bk] * valid[:, None]
+                        acc += a @ wf[dy, dx, c0:c0 + bk]
+            out[b, m0:m0 + bm] = acc
+    return out.reshape(B, H, W, Cout).bfloat16()
+
+
+@pytest.mark.parametrize("fault", [None, "drop_tap", "unmasked_halo_row",
+                                   "missing_wrap_column"])
+def test_smoke_conv_bf16_check_catches_faults(fault):
+    """chip_smoke.py's bf16 check of the dense conv kernel, at the decoder's
+    first shape (15 x 30: a 128-pixel tile spans 4 rows and a ragged last
+    tile) with 1/sqrt(9 Cin)-scaled weights as there: it passes a faithful
+    emulation of the kernel's tile loop and fails each injected fault."""
+    import chip_smoke
+
+    torch.manual_seed(0)
+    x = torch.randn(2, 15, 30, 84).bfloat16()
+    w = (torch.randn(3, 3, 84, 40) / (9 * 84) ** 0.5).bfloat16()
+    ref = t_dc.dense_conv_plain(x, w, SAME3, True)
+    out = _tiled_dense_conv(x, w, 1, fault)
+    rec = chip_smoke.compare(
+        out, ref, chip_smoke.kernel_tolerance("dense_conv", "bfloat16", ref))
+    assert rec["ok"] == (fault is None), rec
+
+
+def test_smoke_conv_shapes_are_the_shipped_dcae(monkeypatch):
+    """chip_smoke.py's tables of conv shapes against the sphere convs that
+    the shipped DCAE runs: a shape-only pass on meta tensors (the library
+    form, which needs no kernel) with a hook on every ``SphereConv``. The
+    kernel counts per encode and decode follow from the same pass."""
+    import chip_smoke
+    from ladcast_torch.config import DCAEConfig
+    from ladcast_torch.models.dcae import AutoencoderDC, SphereConv
+
+    monkeypatch.setattr(t_sphere, "CONV_MODE", "library")
+    with torch.device("meta"):
+        dcae = AutoencoderDC(DCAEConfig())
+    seen = {"encoder": {}, "decoder": {}}
+
+    def record(half):
+        def hook(mod, args):
+            _, H, W, _ = args[0].shape
+            key = ((H, W, mod.in_channels, mod.out_channels) if mod.groups == 1
+                   else (H, W, mod.in_channels, mod.kernel_size[0]))
+            assert mod.groups in (1, mod.in_channels)
+            assert mod.groups > 1 or mod.kernel_size == (3, 3)
+            seen[half][mod.groups > 1, key] = seen[half].get(
+                (mod.groups > 1, key), 0) + 1
+        return hook
+
+    for half in seen:
+        for mod in getattr(dcae, half).modules():
+            if isinstance(mod, SphereConv):
+                mod.register_forward_pre_hook(record(half))
+    z = dcae.encode(torch.empty(1, 120, 240, 84, device="meta"),
+                    torch.empty(120, 240, 5, device="meta"))
+    assert z.shape == (1, 15, 30, 84)
+    assert dcae.decode(torch.empty(2, 15, 30, 84, device="meta")).shape == (
+        2, 120, 240, 84)
+    for half, dense in (("encoder", chip_smoke.ENCODER_DENSE),
+                        ("decoder", chip_smoke.DECODER_DENSE)):
+        assert {k for dw, k in seen[half] if not dw} == set(dense)
+        assert len(set(dense)) == len(dense)
+        assert {k for dw, k in seen[half] if dw} == set(chip_smoke.DEPTHWISE_SHAPES)
+        counts = chip_smoke.sphere_conv_counts(getattr(dcae, half))
+        assert counts == {
+            "dense_conv": sum(n for (dw, _), n in seen[half].items() if not dw),
+            "depthwise_conv": sum(n for (dw, _), n in seen[half].items() if dw)}
+    # the cases of the kernels line are shapes of the decoder
+    assert chip_smoke.KERNEL_LINE_CASES["dense_conv"] == ("120x240x252->252", 40)
+    assert (120, 240, 252, 252) in chip_smoke.DECODER_DENSE
+    assert (30, 60, 4032, 3) in chip_smoke.DEPTHWISE_SHAPES
+    assert chip_smoke.KERNEL_LINE_CASES["depthwise_conv"] == ("30x60x4032 k3", 40)
+
+
+# ------------------------------------------------------------- on a card --
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_conv_and_flash_kernels_match_plain_on_cuda(dtype):
+    """K4, K5 and K6 against their plain versions at ragged small shapes,
+    with chip_smoke.py's tolerances (which covers the production shapes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import chip_smoke
+
+    dname = str(dtype).split(".")[-1]
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device="cuda") * scale).to(dtype)
+
+    x, w = rand(2, 7, 6, 89), rand(3, 3, 89, 21, scale=(9 * 89) ** -0.5)
+    xd, kd = rand(2, 7, 6, 130), rand(5, 5, 130, scale=0.2)
+    q, k, v = (rand(1, 130, 3, 64) for _ in range(3))
+    cases = [
+        ("dense_conv", t_dc.dense_conv_forward, t_dc.dense_conv_plain,
+         (x, w, SAME3, True)),
+        ("dense_conv", t_dc.dense_conv_forward, t_dc.dense_conv_plain,
+         (x, w, SAME3, False)),
+        ("depthwise_conv", t_dw.depthwise_same_conv_forward,
+         t_dw.depthwise_same_conv_plain, (xd, kd, SAME5, True)),
+        ("depthwise_conv", t_dw.depthwise_same_conv_forward,
+         t_dw.depthwise_same_conv_plain, (xd, kd, SAME5, False)),
+        ("flash_attention", t_fa.flash_attention_forward,
+         t_fa.flash_attention_plain, (q, k, v)),
+    ]
+    for name, fn, plain, args in cases:
+        before = fn.launches
+        out, ref = fn(*args), plain(*args)
+        assert fn.launches == before + 1
+        rec = chip_smoke.compare(out, ref, chip_smoke.kernel_tolerance(name, dname, ref))
+        assert rec["ok"], (name, rec)
+    with pytest.raises(RuntimeError, match="would carry no gradient"):
+        t_dc.dense_conv_forward(x.requires_grad_(), w, SAME3, True)

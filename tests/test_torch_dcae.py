@@ -74,22 +74,47 @@ def _rel(a, b):
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
 
-def test_tiny_encode_decode_match_jax():
+def test_tiny_encode_decode_match_jax(monkeypatch):
+    """Under both conv modes: the kernels' plain versions in the
+    fused-boundary form (the default) and ``F.conv2d`` in the 3-slice form."""
     jmodel, params, tmodel, x, static = _models()
     z_j = np.asarray(jmodel.apply(params, jnp.asarray(x), jnp.asarray(static),
                                   method=JaxAE.encode))
-    with torch.no_grad():
-        z_t = tmodel.encode(torch.from_numpy(x), torch.from_numpy(static)).numpy()
-    assert z_t.shape == (2, 2, 4, 4)
-    assert _rel(z_t, z_j) <= 1e-4, _rel(z_t, z_j)
-
-    for return_static in (False, True):
-        y_j = np.asarray(jmodel.apply(params, jnp.asarray(z_j), return_static,
-                                      method=JaxAE.decode))
+    y_js = {rs: np.asarray(jmodel.apply(params, jnp.asarray(z_j), rs,
+                                        method=JaxAE.decode))
+            for rs in (False, True)}
+    assert t_sphere.CONV_MODE == "kernel"
+    for mode in ("kernel", "library"):
+        monkeypatch.setattr(t_sphere, "CONV_MODE", mode)
         with torch.no_grad():
-            y_t = tmodel.decode(torch.tensor(z_j), return_static).numpy()
-        assert y_t.shape == y_j.shape == (2, 16, 32, 9 if return_static else 8)
-        assert _rel(y_t, y_j) <= 1e-4, _rel(y_t, y_j)
+            z_t = tmodel.encode(torch.from_numpy(x), torch.from_numpy(static)).numpy()
+        assert z_t.shape == (2, 2, 4, 4)
+        assert _rel(z_t, z_j) <= 1e-4, (mode, _rel(z_t, z_j))
+        for return_static, y_j in y_js.items():
+            with torch.no_grad():
+                y_t = tmodel.decode(torch.tensor(z_j), return_static).numpy()
+            assert y_t.shape == y_j.shape == (2, 16, 32, 9 if return_static else 8)
+            assert _rel(y_t, y_j) <= 1e-4, (mode, _rel(y_t, y_j))
+
+
+def test_sphere_conv_layer_keeps_its_repacked_weight():
+    """Outside grad mode the layer repacks once per weight, and again when
+    the weight changes; under grad mode the weight's gradient flows."""
+    from ladcast_torch.models.dcae import SphereConv
+
+    torch.manual_seed(0)
+    conv = SphereConv(4, 6)
+    x = torch.randn(1, 6, 8, 4)
+    with torch.no_grad():
+        a = conv(x)
+        kept = conv._packed[1]
+        assert conv(x) is not a and conv._packed[1] is kept
+        conv.weight.mul_(2.0)
+        b = conv(x)
+    assert conv._packed[1] is not kept
+    torch.testing.assert_close(b - conv.bias, 2 * (a - conv.bias))
+    conv(x).sum().backward()
+    assert conv.weight.grad is not None and conv.weight.grad.abs().max() > 0
 
 
 def test_state_dict_from_flax_equals_export():

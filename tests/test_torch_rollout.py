@@ -69,13 +69,19 @@ def test_heun_trajectory_toy_denoiser(n):
 
 
 def test_sampler_options_not_ported_raise():
-    with pytest.raises(NotImplementedError):
+    """Churn, correction skipping and the DPM sampler are ported
+    (tests/test_torch_samplers.py); what still raises is a churned run
+    without its noise, noise of the wrong shape, and an unknown sampler."""
+    with pytest.raises(ValueError, match="churn_generator"):
         t_heun(T_SCHED, lambda x, s: x, torch.zeros(2), 3, s_churn=1.0)
-    with pytest.raises(NotImplementedError):
-        t_heun(T_SCHED, lambda x, s: x, torch.zeros(2), 3,
-               correction_skip_period=2)
-    with pytest.raises(NotImplementedError):
-        t_engine.make_repetition_fn(T_SCHED, t_config.RolloutConfig(sampler_type="dpm"))
+    with pytest.raises(ValueError, match="churn_noise"):
+        t_heun(T_SCHED, lambda x, s: x, torch.zeros(2), 3, s_churn=1.0,
+               churn_noise=torch.zeros(2, 2))
+    t_heun(T_SCHED, lambda x, s: x * 0, torch.zeros(2), 3,
+           correction_skip_period=2)
+    t_engine.make_repetition_fn(T_SCHED, t_config.RolloutConfig(sampler_type="dpm"))
+    with pytest.raises(ValueError, match="expected 'edm' or 'dpm'"):
+        t_engine.make_repetition_fn(T_SCHED, t_config.RolloutConfig(sampler_type="ddim"))
 
 
 TINY = dict(in_channels=6, out_channels=6, num_attention_heads=2,

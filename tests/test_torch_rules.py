@@ -17,7 +17,7 @@ from ladcast_torch.ops import _build
 from ladcast_torch.ops import flash_attention as fa
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ladcast_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ladcast_tpu", "safetensors")
 PORT_FILES = sorted((ROOT / "ladcast_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -42,10 +42,16 @@ def test_port_imports_no_jax(path):
 
 def test_kernel_sources_ship_with_the_package():
     srcs = _build.sources()
-    assert set(srcs) == {"norm_rope", "fused_attention", "flash_bwd"}
-    for src in srcs.values():
+    replaces = {"norm_rope": "flash_attention.py:70",
+                "fused_attention": "flash_attention.py:113",
+                "flash_bwd": "flash_attention.py:279",
+                "flash_plain": "flash_attention.py:601",
+                "dense_conv": "dense_conv.py:83",
+                "depthwise_conv": "depthwise_conv.py:101"}
+    assert set(srcs) == set(replaces)
+    for name, src in srcs.items():
         text = src.read_text()
-        assert "Replaces: ladcast_tpu/ops/pallas/flash_attention.py:" in text
+        assert f"Replaces: ladcast_tpu/ops/pallas/{replaces[name]}" in text
         assert "Bound on an H100" in text
         assert 'extern "C" int' in text and "cudaGetLastError()" in text
 
