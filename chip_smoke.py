@@ -13,14 +13,19 @@ out).
 
   1. environment: the card (nvidia-smi), torch and CUDA versions, and the
      build of the CUDA kernels from ``ladcast_torch/csrc`` (one nvcc per
-     source, in parallel);
+     source, in parallel); for the attention's library, each kernel's
+     registers, shared memory and spills (``-Xptxas -v``) and its count of
+     wgmma (HGMMA), TMA-load (UTMALDG) and mma.sync (HMMA) instructions
+     (``cuobjdump -sass``): the bf16 K1 must have the first two, not the
+     third, spill nothing and draw no note from ptxas (a serialised wgmma);
   2. kernels: each kernel against its plain PyTorch version on the card, in
      bf16 and fp32, at the main path's shapes (B=20, S=2250 dual- and
      single-stream tables, S=450 refiner tables) and a ragged small case,
      with median times over 20 timed runs, the plain version's time, the
      roofline bound and, for the attention, the time of PyTorch's
      ``scaled_dot_product_attention`` on the pre-normed inputs (a
-     yardstick only; the port never calls it);
+     yardstick only; the port never calls it), its rate and the bound's
+     share of its time;
      the plain flash attention (K6) follows at (2, 2250 / 450, 12, 128) and
      (1, 130, 3, 64), fp32 and bf16 inputs, with SDPA as its yardstick,
      and is driven once through ``ops.attention.dot_product_attention``;
@@ -36,9 +41,11 @@ out).
      flash backward (dq, dk/dv) against their plain versions, bf16 and
      fp32, at the training shapes (B=4, S=2250 dual- and single-stream
      tables, S=450 refiner tables) and a ragged small case, with times,
-     bounds and, for the backward, the time of PyTorch's SDPA backward
-     on the same pre-normed inputs (a yardstick only), per kernel and for
-     the dq + dk/dv pair against the whole plain and SDPA backward;
+     bounds and, as yardsticks only, the time of the aten op of SDPA's own
+     backend asked for its logsumexp beside the lse variant, and of
+     PyTorch's SDPA backward on the same pre-normed inputs beside the
+     backward, per kernel and for the dq + dk/dv pair against the whole
+     plain and SDPA backward;
   3. model parity: one 375M DiT forward at B=2 through the kernels and
      through the plain composite, same seeded weights and inputs;
   3b. gradient parity: the 375M training loss at B=2 (injected sigma
@@ -91,6 +98,7 @@ import datetime
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -192,6 +200,56 @@ def nvidia_smi_line():
                         "--format=csv,noheader"], capture_output=True,
                        text=True, timeout=60, check=True)
     return r.stdout.strip().splitlines()[0]
+
+
+def csrc_kernels():
+    """{source stem: [names of its __global__ kernels]} of
+    ``ladcast_torch/csrc/*.cu``, read from the sources."""
+    pat = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(")
+    return {p.stem: pat.findall(p.read_text())
+            for p in sorted((ROOT / "ladcast_torch" / "csrc").glob("*.cu"))}
+
+
+# SASS opcodes that show which path a kernel took: HGMMA is wgmma, UTMALDG a
+# TMA tile load, HMMA mma.sync
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
+
+
+def kernel_report(lib_name):
+    """{kernel: {"ptxas": registers / barriers / shared memory line, "frame":
+    stack and spill line, "warnings": ptxas's warnings and performance notes
+    (such as wgmma serialised), "sass": {op: count}}} for the kernels of one
+    built library, from nvcc's ``-Xptxas -v`` log and ``cuobjdump -sass``."""
+    from ladcast_torch.ops import _build
+
+    lib = _build.build_all()[lib_name]
+    names = csrc_kernels()[lib_name]
+    report = {n: {"ptxas": None, "frame": None, "warnings": [], "sass": {}}
+              for n in names}
+
+    def which(text):
+        return next((n for n in names if n in text), None)
+
+    cur = None
+    for line in lib.with_suffix(".log").read_text().splitlines():
+        if "Compiling entry function" in line or "Function properties for" in line:
+            cur = which(line)
+        elif cur and "registers" in line:
+            report[cur]["ptxas"] = line.split(":", 1)[1].strip()
+        elif cur and "spill stores" in line:
+            report[cur]["frame"] = line.strip()
+        if ("warning" in line.lower() or "Performance Loss" in line) and which(line):
+            report[which(line)]["warnings"].append(line.strip())
+    sass = subprocess.run([str(_build.nvcc_dir() / "cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    op = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)")
+    for section in sass.split("Function : ")[1:]:
+        name = which(section.splitlines()[0])
+        if name is None:
+            continue
+        ops = [m.group(1) for m in op.finditer(section)]
+        report[name]["sass"] = {o: ops.count(o) for o in SASS_OPS}
+    return report
 
 
 def bf16_ulp(x):
@@ -330,6 +388,9 @@ def kernel_phase(peaks):
                 kh, vh = (t.transpose(1, 2).contiguous() for t in (kn, v))
                 rec["library_ms"] = time_ms(
                     lambda: F.scaled_dot_product_attention(qh, kh, vh), inner=1)
+                rec["library_op"] = ("F.scaled_dot_product_attention, on "
+                                     + sdpa_with_lse(qh, kh, vh)[0])
+                rec.update(rates(flops, rec))
                 del qh, kh, vh
             emit(rec)
             results["fused_attention"].append(rec)
@@ -689,6 +750,34 @@ def bound(flops, nbytes, peak, bw):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
+def rates(flops, rec):
+    """{"tflops", "bound_share"} of a timed record: its rate, and how much
+    of its time the bound is."""
+    return {"tflops": flops / rec["ms"] / 1e9, "bound_share": rec["bound_ms"] / rec["ms"]}
+
+
+def sdpa_with_lse(qh, kh, vh):
+    """(name, call) of the aten op of the backend that
+    ``F.scaled_dot_product_attention`` picks for these (B, H, S, D) inputs,
+    called so that it also returns the rows' logsumexp. A yardstick only:
+    the port never calls it."""
+    import torch
+    from torch.nn.attention import SDPBackend
+
+    aten = torch.ops.aten
+    choice = torch._fused_sdp_choice(qh, kh, vh)
+    if choice == SDPBackend.FLASH_ATTENTION.value:  # always returns it
+        return ("aten._scaled_dot_product_flash_attention",
+                lambda: aten._scaled_dot_product_flash_attention(qh, kh, vh))
+    if choice == SDPBackend.CUDNN_ATTENTION.value:
+        return ("aten._scaled_dot_product_cudnn_attention",
+                lambda: aten._scaled_dot_product_cudnn_attention(qh, kh, vh, None, True))
+    if choice == SDPBackend.EFFICIENT_ATTENTION.value:
+        return ("aten._scaled_dot_product_efficient_attention",
+                lambda: aten._scaled_dot_product_efficient_attention(qh, kh, vh, None, True))
+    raise AssertionError(f"SDPA picks backend {choice} for the attention yardstick")
+
+
 def backward_kernel_phase(peaks):
     """K1's lse variant and K3 (dq, dk/dv) against their plain versions
     at the training shapes."""
@@ -752,7 +841,13 @@ def backward_kernel_phase(peaks):
                     q, kn, v, cos, sin, w, return_lse=True))
                 rec["plain_ms"] = time_ms(lambda: fa.fused_attention_plain(
                     q, kn, v, cos, sin, w, return_lse=True), inner=1)
-                rec["library_ms"] = None
+                # the yardstick: SDPA's own backend for these inputs, asked
+                # for its logsumexp (the forward that its backward needs)
+                qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (qn, kn, v))
+                rec["library_op"], lib_call = sdpa_with_lse(qh, kh, vh)
+                rec["library_ms"] = time_ms(lib_call, inner=1)
+                rec.update(rates(4 * B * H * S * S * D, rec))
+                del qh, kh, vh, lib_call
             emit(rec)
             results["fused_attention_lse"].append(rec)
             if not (rec["ok"] and rec["out"]["ok"]):
@@ -1269,10 +1364,13 @@ def forecast_phase(tmp):
     return results
 
 
-# kernel-name fragments -> category, first match wins
-CATEGORIES = [("fused_attention", ("fa_bf16_kernel", "fa_f32_kernel")),
+# kernel-name fragments -> category, first match wins: every kernel of
+# ladcast_torch/csrc is named before "gemm", whose "wgmma" would take a
+# kernel that issues wgmma (tests/test_torch_rules.py holds this)
+CATEGORIES = [("fused_attention", ("fa_bf16_wgmma_kernel", "fa_f32_kernel")),
               ("flash_bwd", ("bwd_dq_", "bwd_dkv_")),
               ("norm_rope", ("norm_rope_kernel",)),
+              ("flash_plain (K6)", ("fa_plain_kernel",)),
               ("dense_conv (K4)", ("conv_bf16_kernel", "conv_f32_kernel")),
               ("depthwise_conv (K5)", ("dw_kernel",)),
               ("foreach (AdamW, EMA, norms)", ("multi_tensor_apply",)),
@@ -1283,6 +1381,12 @@ CATEGORIES = [("fused_attention", ("fa_bf16_kernel", "fa_f32_kernel")),
               ("copy_cat", ("CatArray", "Copy", "copy", "flip", "roll",
                             "index")),
               ("elementwise", ("elementwise", "vectorized", "fill"))]
+
+
+def category(kernel_name):
+    """The profile category of a device kernel, by name."""
+    return next((c for c, frags in CATEGORIES
+                 if any(f in kernel_name for f in frags)), "other")
 
 
 def profile_phase(path, fn):
@@ -1313,8 +1417,7 @@ def profile_phase(path, fn):
     by_cat, top = {}, {}
     for e in kernels:
         dur = e.time_range.end - e.time_range.start
-        cat = next((c for c, frags in CATEGORIES
-                    if any(f in e.name for f in frags)), "other")
+        cat = category(e.name)
         by_cat[cat] = by_cat.get(cat, 0.0) + dur / 1e3
         top[e.name[:80]] = top.get(e.name[:80], 0.0) + dur / 1e3
     emit({"phase": "profile", "path": path, "wall_s": wall_s,
@@ -1367,6 +1470,15 @@ def main():
           "libraries": sorted(p.name for p in libs.values()),
           "peaks": {"bf16_flops": peaks[0], "fp32_flops": peaks[1],
                     "bytes_per_s": peaks[2]}})
+    # K1 in bf16 must be the Hopper kernel: wgmma, TMA loads, no mma.sync,
+    # no spills, and no note of ptxas's (a serialised wgmma)
+    report = kernel_report("fused_attention")
+    emit({"phase": "kernel_build", "library": "fused_attention", "kernels": report})
+    k1 = report["fa_bf16_wgmma_kernel"]
+    if (not k1["sass"].get("HGMMA") or not k1["sass"].get("UTMALDG")
+            or k1["sass"].get("HMMA") or k1["warnings"] or not k1["frame"]
+            or "0 bytes spill stores, 0 bytes spill loads" not in k1["frame"]):
+        raise AssertionError(f"fa_bf16_wgmma_kernel as built: {k1}")
 
     t0 = time.perf_counter()
     results = kernel_phase(peaks)
@@ -1424,7 +1536,9 @@ def main():
                 "max_abs_err": max(r["max_abs_err"] for r in recs),
                 "ms": main["ms"], "plain_ms": main["plain_ms"],
                 "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-                "library_ms": main["library_ms"], "case": main_case}
+                "library_ms": main["library_ms"], "case": main_case,
+                **{k: main[k] for k in ("library_op", "tflops", "bound_share")
+                   if k in main}}
 
     # launches: the bench path's for K1 and K2, the training path's (kernel
     # backward) for K1-lse and K3, the forecast path's (Heun with decode)

@@ -21,199 +21,292 @@
 // against 110 MB of q/k/v/o traffic (33 us): compute-bound. At the
 // refiner's S=450 the products shrink 25-fold and the traffic 5-fold, and
 // the kernel sits near the ridge.
-// Design (bf16): one block of 4 warps per (64-row Q tile, b*head); each
-// warp owns 16 Q rows. The normed Q tile goes through shared memory into
-// registers once (ldmatrix). K and V stream through shared memory in
-// 64-key tiles, two tiles in flight by cp.async (the first two load while
-// Q is normed), so the copies overlap the products. S = Q.K^T and
-// O += P.V run on the tensor cores with mma.sync.m16n8k16 (bf16 in, fp32
-// accumulate), P staying in registers between the two products; the
-// softmax works in log2 units (one exp2 per score). Shared-memory rows are
-// padded by 16 bytes so that ldmatrix reads are free of bank conflicts;
-// Q plus two K/V stages take 87 KB, above the 48 KB default, so the launch
-// opts in. A wgmma/TMA pipeline is the known next step.
-// fp32 (the parity dtype) runs a plain FMA kernel of the same structure,
-// 32x32 tiles, on the CUDA cores.
+// Design (bf16): the FA3 shape on Hopper (sm_90a). One block of three
+// warpgroups per (128-row Q tile, b*head): two consumer warpgroups of 64 Q
+// rows each, and a producer warpgroup whose one thread issues the TMA loads;
+// setmaxnreg moves registers from the producer (24 a thread) to the
+// consumers (240). What it does about the four limits of the mma.sync
+// design it replaced (4 warps of 16 rows, cp.async tiles of 64 keys):
+//  1. Tensor-core rate: both products are wgmma.m64n128k16 (bf16 in, fp32
+//     accumulate) issued by a whole warpgroup. S = Q.K^T reads Q and K from
+//     shared memory, K-major (D is contiguous). O += P.V takes P from
+//     registers: the fp32 S accumulator of an m64nN product is laid out as
+//     the A fragment of the next, so P is S rescaled, exponentiated and
+//     packed to bf16x2 in place. V is read MN-major through the
+//     descriptor's transpose bit and is never transposed in memory.
+//  2. Shared-memory reads: a wgmma reads a K or V tile once per 64 rows,
+//     where ldmatrix reloaded it once per warp of 16 rows (4x the traffic).
+//  3. Softmax overlap: the two consumers take turns issuing their products
+//     (named barriers 1 and 2, "ping-pong"), so that one's exp2 softmax runs
+//     while the other's products occupy the tensor cores. Not done:
+//     intra-warpgroup pipelining (issuing the next tile's Q.K^T with this
+//     tile's P.V, so that a consumer's softmax also overlaps its own
+//     products); a first version of it, on a 3-stage ring, ran slower than
+//     this loop on the H100.
+//  4. Copies: no consumer thread copies K or V. The producer streams tiles
+//     of 128 keys by TMA into a ring of kStages stages; each stage has a
+//     "full" mbarrier for K and one for V (expect_tx byte counts) and an
+//     "empty" one that each consumer warp arrives on once the P.V that read
+//     the stage has retired. The 4-D tensor maps over (D, H, S, B), with a
+//     box of (64, 1, 128, 1) and 128-byte swizzle (two boxes per head row),
+//     zero-fill the ragged last tile (2250 = 17*128 + 74) instead of reading
+//     the next batch's rows. Keys >= Sk are still masked to -1e30 in the
+//     softmax; the zero-filled V rows keep 0 * garbage out of the sum.
+// The Q prologue runs in the consumers: a warp per row (kQBatch rows' loads
+// in flight at once) norms, rotates and scales it in fp32 (norm_rope4) and
+// writes bf16 into shared memory in the 128-byte-swizzled K-major layout
+// that TMA gives K, then fences the async proxy before the first wgmma. Shared memory rather than
+// register A fragments, so that Q costs no registers beside the 64 + 64 + 32
+// of S, O and P, and Q and K share one descriptor form. Rows >= Sq are zero
+// and are not stored. The epilogue divides by l and stores bf16x2 pairs
+// straight from the fragments (no TMA store), and writes the lse rows.
+// Shared memory: Q 32 KB + 2 stages x (K + V) 128 KB = 160 KB, one block
+// per SM; at S=2250, B=20 the grid is 18 x 240 blocks.
+// fp32 (the parity dtype) runs a plain FMA kernel, 32x32 tiles, on the CUDA
+// cores: wgmma has no fp32 inputs, and TF32 would miss its 1e-4 check.
 
 #include <math.h>
 
-#include "mma.cuh"
+#include "hopper.cuh"
 #include "norm_rope.cuh"
 
 namespace {
 
+namespace hp = ladcast::hopper;
 using bf16 = __nv_bfloat16;
-using ladcast::cp_async16;
-using ladcast::cp_async_commit;
-using ladcast::cp_async_wait;
-using ladcast::ldmatrix_x4;
-using ladcast::ldmatrix_x4_trans;
-using ladcast::mma_bf16;
 using ladcast::pack_bf16;
 constexpr int D = ladcast::kHeadDim;
 constexpr float kNegInf = -1e30f;  // as the TPU kernel: exp(kNegInf - m) == 0
 
 // ----------------------------------------------------------------- bf16 ---
-constexpr int BM = 64, BN = 64, kWarps = 4, LDS = D + 8;
-constexpr int kStages = 2;  // K/V tiles in flight
-constexpr int kSmemBf16 = (BM + 2 * kStages * BN) * LDS * (int)sizeof(bf16);
+constexpr int WM = 64;                 // Q rows per consumer warpgroup
+constexpr int BM = 2 * WM;             // Q rows per block
+constexpr int BN = 128;                // keys per K/V tile
+constexpr int kStages = 2;             // K/V tiles in the ring
+constexpr int kQBatch = 8;             // Q rows a warp loads at once
+constexpr int kThreads = 3 * 128;      // consumers 0 and 1, producer 2
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+constexpr int kRowBytes = 128;         // a swizzled row: half a head row
+constexpr int kQBytes = WM * D * 2;    // one consumer's Q tile, 16 KB
+constexpr int kTileBytes = BN * D * 2; // one K or V tile, 32 KB
+constexpr int kSmemBf16 = 2 * kQBytes + 2 * kStages * kTileBytes
+                          + 3 * kStages * 8 + 1024;  // + barriers, alignment
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// Start the copy of K/V rows [k0, k0 + BN) into one stage; rows past Sk
-// are zero-filled with plain stores (visible after the next barrier).
-__device__ __forceinline__ void load_kv_tile(bf16* sK, bf16* sV, const bf16* kb,
-                                             const bf16* vb, int k0, int Sk,
-                                             long long rs) {
-  for (int c = threadIdx.x; c < BN * (D / 8); c += kWarps * 32) {
-    const int r = c / (D / 8), col = (c % (D / 8)) * 8;
-    if (k0 + r < Sk) {
-      cp_async16(sK + r * LDS + col, kb + (k0 + r) * rs + col);
-      cp_async16(sV + r * LDS + col, vb + (k0 + r) * rs + col);
-    } else {
-      *reinterpret_cast<uint4*>(sK + r * LDS + col) = make_uint4(0u, 0u, 0u, 0u);
-      *reinterpret_cast<uint4*>(sV + r * LDS + col) = make_uint4(0u, 0u, 0u, 0u);
-    }
-  }
-  cp_async_commit();
+// 2^x on the MUFU unit in one instruction, results below 2^-126 flushed to
+// zero (exp2f keeps them at the cost of extra instructions): such a P adds
+// nothing to a row whose sum is at least 1.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
-fa_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kn,
-               const bf16* __restrict__ v, const float* __restrict__ qcos,
-               const float* __restrict__ qsin, const float* __restrict__ qw,
-               bf16* __restrict__ out, float* __restrict__ lse, int Sq, int Sk,
-               int H, float eps, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + BM * LDS;              // kStages tiles of BN rows
-  bf16* sV = sK + kStages * BN * LDS;
+// Descriptor offsets, in the 16-byte units of the start address field.
+constexpr uint64_t kDescHalfQ = WM * kRowBytes / 16;   // Q's second half row
+constexpr uint64_t kDescHalfK = BN * kRowBytes / 16;   // a tile's second half
+constexpr uint64_t kDescStage = kTileBytes / 16;
+constexpr uint64_t kDescK16 = 32 / 16;                 // 16 bf16 along D
+constexpr uint64_t kDescKeys16 = 16 * kRowBytes / 16;  // 16 keys of V
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+__global__ void __launch_bounds__(kThreads, 1)
+fa_bf16_wgmma_kernel(__grid_constant__ const CUtensorMap tm_k,
+                     __grid_constant__ const CUtensorMap tm_v,
+                     const bf16* __restrict__ q, const float* __restrict__ qcos,
+                     const float* __restrict__ qsin, const float* __restrict__ qw,
+                     bf16* __restrict__ out, float* __restrict__ lse, int Sq,
+                     int Sk, int H, float eps, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  // swizzled tiles start on 1024-byte boundaries
+  unsigned char* sQ = smem_raw + ((1024 - (hp::smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* sK = sQ + 2 * kQBytes;
+  unsigned char* sV = sK + kStages * kTileBytes;
+  uint64_t* full_k = reinterpret_cast<uint64_t*>(sV + kStages * kTileBytes);
+  uint64_t* full_v = full_k + kStages;
+  uint64_t* empty = full_v + kStages;
+
+  const int wg = threadIdx.x / 128;
   const int q0 = blockIdx.x * BM;
   const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const long long rs = (long long)H * D;  // elements between sequence rows
-  const bf16* qb = q + ((long long)b * Sq * H + h) * D;
-  const bf16* kb = kn + ((long long)b * Sk * H + h) * D;
-  const bf16* vb = v + ((long long)b * Sk * H + h) * D;
-  bf16* ob = out + ((long long)b * Sq * H + h) * D;
-
-  // The first K/V tiles load while the Q tile is normed.
   const int n_tiles = (Sk + BN - 1) / BN;
-#pragma unroll
-  for (int st = 0; st < kStages; ++st)
-    if (st < n_tiles)
-      load_kv_tile(sK + st * BN * LDS, sV + st * BN * LDS, kb, vb, st * BN, Sk, rs);
 
-  // Q tile: norm + RoPE in fp32, scale, cast; padded rows are zero.
-  for (int r = warp; r < BM; r += kWarps) {
-    const int s = q0 + r;
-    float x[4] = {0.f, 0.f, 0.f, 0.f};
-    if (s < Sq) {
-      ladcast::load4(qb + s * rs + lane * 4, x);
-      const long long t = (long long)s * D;
-      ladcast::norm_rope4(x, qw + t, qcos + t, qsin + t, lane, eps);
+  if (threadIdx.x == 0) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) x[i] *= scale;
+    for (int s = 0; s < kStages; ++s) {
+      hp::mbar_init(&full_k[s], 1);
+      hp::mbar_init(&full_v[s], 1);
+      hp::mbar_init(&empty[s], 8);  // one arrival per consumer warp
     }
-    ladcast::store4(sQ + r * LDS + lane * 4, x);
+    hp::mbar_fence_init();
   }
   __syncthreads();
 
-  uint32_t qf[D / 16][4];  // this warp's 16 rows as mma A fragments
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    ldmatrix_x4(qf[kk], sQ + (warp * 16 + (lane & 15)) * LDS + kk * 16 + (lane >> 4) * 8);
-
-  float o[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  // running max (in log2 units) and sum of rows g and g+8 of the warp
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
-
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * BN;
-    if (kt + 1 < n_tiles) cp_async_wait<kStages - 1>(); else cp_async_wait<0>();
-    __syncthreads();  // tile kt has landed for every thread
-    const bf16* tK = sK + (kt % kStages) * BN * LDS;
-    const bf16* tV = sV + (kt % kStages) * BN * LDS;
-
-    // S = Q K^T: 16 rows x 64 keys per warp, 8 n-tiles of 8 keys.
-    float sc[BN / 8][4];
-#pragma unroll
-    for (int i = 0; i < BN / 8; ++i) sc[i][0] = sc[i][1] = sc[i][2] = sc[i][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int np = 0; np < BN / 16; ++np) {
-        uint32_t kf[4];
-        ldmatrix_x4(kf, tK + (np * 16 + (lane & 7) + ((lane >> 4) & 1) * 8) * LDS +
-                            kk * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(sc[2 * np], qf[kk], kf[0], kf[1]);
-        mma_bf16(sc[2 * np + 1], qf[kk], kf[2], kf[3]);
+  if (wg == 2) {  // ---- producer: one thread keeps the ring full
+    hp::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 2 * 128) {
+      for (int kt = 0; kt < n_tiles; ++kt) {
+        const int s = kt % kStages;
+        hp::mbar_wait(&empty[s], ((kt / kStages) & 1) ^ 1);
+        hp::mbar_arrive_expect_tx(&full_k[s], kTileBytes);
+        unsigned char* k_dst = sK + s * kTileBytes;
+        hp::tma_load_4d(k_dst, &tm_k, &full_k[s], 0, h, kt * BN, b);
+        hp::tma_load_4d(k_dst + kTileBytes / 2, &tm_k, &full_k[s], 64, h, kt * BN, b);
+        hp::mbar_arrive_expect_tx(&full_v[s], kTileBytes);
+        unsigned char* v_dst = sV + s * kTileBytes;
+        hp::tma_load_4d(v_dst, &tm_v, &full_v[s], 0, h, kt * BN, b);
+        hp::tma_load_4d(v_dst + kTileBytes / 2, &tm_v, &full_v[s], 64, h, kt * BN, b);
       }
     }
-    // log2 units, so that exp(s - m) is one exp2; keys >= Sk masked
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        sc[nt][j] = (k0 + nt * 8 + (lane & 3) * 2 + (j & 1) < Sk)
-                        ? sc[nt][j] * kLog2e : kNegInf;
+    return;
+  }
 
-    // Online softmax; each row's values are spread over a quad of lanes.
-    float mx0 = m0, mx1 = m1;
+  // ---- consumers 0 and 1: 64 Q rows each
+  hp::setmaxnreg_inc<kConsumerRegs>();
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+  const long long rs = (long long)H * D;  // elements between sequence rows
+  unsigned char* sQw = sQ + wg * kQBytes;
+
+  // Q prologue: norm + RoPE in fp32, scale, cast, into the swizzled layout
+  // (16-byte chunk c of row r at chunk c ^ (r % 8)); padded rows are zero.
+  // Warp w takes rows w, w + 4, ..., kQBatch at a time, every load of a
+  // batch issued before the first is used: one row at a time, a warp's 16
+  // rows would wait out 16 load latencies in a row.
+  {
+    const bf16* qb = q + ((long long)b * Sq * H + h) * D;
+    const int half = lane >> 4, chunk = (lane & 15) >> 1;
+    for (int i0 = 0; i0 < WM / 4; i0 += kQBatch) {
+      float x[kQBatch][4], wv[kQBatch][4], c[kQBatch][4], sn[kQBatch][4];
 #pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-      mx0 = fmaxf(mx0, fmaxf(sc[nt][0], sc[nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(sc[nt][2], sc[nt][3]));
+      for (int i = 0; i < kQBatch; ++i) {
+        const int s = q0 + wg * WM + warp + 4 * (i0 + i);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) x[i][k] = wv[i][k] = c[i][k] = sn[i][k] = 0.f;
+        if (s < Sq) {
+          const long long tr = (long long)s * D + lane * 4;
+          ladcast::load4(qb + s * rs + lane * 4, x[i]);
+          ladcast::load4(qw + tr, wv[i]);
+          ladcast::load4(qcos + tr, c[i]);
+          ladcast::load4(qsin + tr, sn[i]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kQBatch; ++i) {
+        const int r = warp + 4 * (i0 + i);
+        if (q0 + wg * WM + r < Sq) {  // the same for the whole warp
+          ladcast::norm_rope4(x[i], wv[i], c[i], sn[i], eps);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) x[i][k] *= scale;
+        }
+        *reinterpret_cast<uint2*>(sQw + half * WM * kRowBytes + r * kRowBytes
+                                  + ((chunk ^ (r & 7)) << 4) + (lane & 1) * 8) =
+            make_uint2(pack_bf16(x[i][0], x[i][1]), pack_bf16(x[i][2], x[i][3]));
+      }
+    }
+  }
+  hp::fence_proxy_async();
+  hp::named_sync(3 + wg, 128);
+  if (wg == 1) hp::named_arrive(1, 256);  // consumer 0 takes the first turn
+
+  const uint64_t desc_q = hp::smem_desc_sw128(sQw, 16, 1024);
+  const uint64_t desc_k = hp::smem_desc_sw128(sK, 16, 1024);
+  const uint64_t desc_v = hp::smem_desc_sw128(sV, kTileBytes / 2, 1024);
+  const int my_turn = 1 + wg, their_turn = 2 - wg;
+
+  float o[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  // running max (log2 units) and sum of this thread's rows r and r + 8
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+  float sc[64];
+  uint32_t p[32];
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int s = kt % kStages;
+    const uint32_t parity = (kt / kStages) & 1;
+
+    // S = Q K^T: 64 rows x 128 keys, 8 k-steps of 16 along D.
+    hp::mbar_wait(&full_k[s], parity);
+    hp::named_sync(my_turn, 256);
+    hp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hp::wgmma_m64n128k16_ss(
+          sc, desc_q + (kk >> 2) * kDescHalfQ + (kk & 3) * kDescK16,
+          desc_k + s * kDescStage + (kk >> 2) * kDescHalfK + (kk & 3) * kDescK16,
+          kk > 0);
+    hp::wgmma_commit();
+    hp::named_arrive(their_turn, 256);
+    hp::wgmma_wait<0>();
+    hp::fence_regs(sc);
+
+    // keys >= Sk (the ragged last tile) masked
+    const int k0 = kt * BN;
+    if (k0 + BN > Sk) {
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (k0 + 8 * j + 2 * (lane & 3) + (i & 1) >= Sk) sc[4 * j + i] = kNegInf;
+    }
+    // Online softmax in log2 units; a row's 128 scores are spread over a
+    // quad of lanes. P goes to bf16 before P.V, l sums the fp32 values.
+    float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
     }
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
       mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
       mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
     }
-    const float a0 = exp2f(m0 - mx0), a1 = exp2f(m1 - mx1);
+    mx0 = fmaxf(m0, mx0 * kLog2e);
+    mx1 = fmaxf(m1, mx1 * kLog2e);
+    const float a0 = exp2_ftz(m0 - mx0), a1 = exp2_ftz(m1 - mx1);
     m0 = mx0;
     m1 = mx1;
     l0 *= a0;
     l1 *= a1;
 #pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-      sc[nt][0] = exp2f(sc[nt][0] - mx0);
-      sc[nt][1] = exp2f(sc[nt][1] - mx0);
-      sc[nt][2] = exp2f(sc[nt][2] - mx1);
-      sc[nt][3] = exp2f(sc[nt][3] - mx1);
-      l0 += sc[nt][0] + sc[nt][1];
-      l1 += sc[nt][2] + sc[nt][3];
+    for (int j = 0; j < BN / 8; ++j) {
+      const float p0 = exp2_ftz(fmaf(sc[4 * j], kLog2e, -mx0));
+      const float p1 = exp2_ftz(fmaf(sc[4 * j + 1], kLog2e, -mx0));
+      const float p2 = exp2_ftz(fmaf(sc[4 * j + 2], kLog2e, -mx1));
+      const float p3 = exp2_ftz(fmaf(sc[4 * j + 3], kLog2e, -mx1));
+      l0 += p0 + p1;
+      l1 += p2 + p3;
+      p[2 * j] = pack_bf16(p0, p1);
+      p[2 * j + 1] = pack_bf16(p2, p3);
     }
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      o[dt][0] *= a0; o[dt][1] *= a0;
-      o[dt][2] *= a1; o[dt][3] *= a1;
+    for (int j = 0; j < D / 8; ++j) {
+      o[4 * j] *= a0;
+      o[4 * j + 1] *= a0;
+      o[4 * j + 2] *= a1;
+      o[4 * j + 3] *= a1;
     }
 
-    // O += P V: P (16 x 64, bf16) from the S accumulators, V via ldmatrix.trans.
+    // O += P V: 8 k-steps of 16 keys; P's k-step kk is n-blocks 2kk, 2kk+1
+    // of S, that is p[4kk .. 4kk+3].
+    hp::mbar_wait(&full_v[s], parity);
+    hp::named_sync(my_turn, 256);
+    hp::fence_regs(o);
+    hp::fence_regs(p);
+    hp::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      const uint32_t pa[4] = {
-          pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
-          pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
-          pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
-          pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
-#pragma unroll
-      for (int np = 0; np < D / 16; ++np) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, tV + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS +
-                                  np * 16 + ((lane >> 4) & 1) * 8);
-        mma_bf16(o[2 * np], pa, vf[0], vf[1]);
-        mma_bf16(o[2 * np + 1], pa, vf[2], vf[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with this stage
-    if (kt + kStages < n_tiles)
-      load_kv_tile(sK + (kt % kStages) * BN * LDS, sV + (kt % kStages) * BN * LDS,
-                   kb, vb, (kt + kStages) * BN, Sk, rs);
+    for (int kk = 0; kk < BN / 16; ++kk)
+      hp::wgmma_m64n128k16_rs_tnsp_b(o, &p[4 * kk],
+                                     desc_v + s * kDescStage + kk * kDescKeys16, 1);
+    hp::wgmma_commit();
+    // every sync of one consumer is matched by one arrival of the other:
+    // consumer 1 skips its last, consumer 0 had one from the start
+    if (wg == 0 || kt + 1 < n_tiles) hp::named_arrive(their_turn, 256);
+    hp::wgmma_wait<0>();
+    hp::fence_regs(o);
+    if (lane == 0) hp::mbar_arrive(&empty[s]);  // this warp is done with stage s
+    __syncwarp();
   }
 
 #pragma unroll
@@ -221,16 +314,17 @@ fa_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kn,
     l0 += __shfl_xor_sync(0xffffffffu, l0, off);
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
-  const int r0 = q0 + warp * 16 + (lane >> 2), r1 = r0 + 8;
+  const int r0 = q0 + wg * WM + warp * 16 + (lane >> 2), r1 = r0 + 8;
+  bf16* ob = out + ((long long)b * Sq * H + h) * D;
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int col = dt * 8 + (lane & 3) * 2;
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * (lane & 3);
     if (r0 < Sq)
       *reinterpret_cast<__nv_bfloat162*>(ob + r0 * rs + col) =
-          __floats2bfloat162_rn(o[dt][0] / l0, o[dt][1] / l0);
+          __floats2bfloat162_rn(o[4 * j] / l0, o[4 * j + 1] / l0);
     if (r1 < Sq)
       *reinterpret_cast<__nv_bfloat162*>(ob + r1 * rs + col) =
-          __floats2bfloat162_rn(o[dt][2] / l1, o[dt][3] / l1);
+          __floats2bfloat162_rn(o[4 * j + 2] / l1, o[4 * j + 3] / l1);
   }
   if (lse != nullptr && (lane & 3) == 0) {  // m is in log2 units
     float* lb = lse + ((long long)b * H + h) * Sq;
@@ -350,7 +444,8 @@ fa_f32_kernel(const float* __restrict__ q, const float* __restrict__ kn,
 }  // namespace
 
 // q, out: (B, Sq, H, 128); kn, v: (B, Sk, H, 128); contiguous, one dtype;
-// lse: null, or (B, H, Sq) fp32. Returns cudaGetLastError().
+// lse: null, or (B, H, Sq) fp32. Returns cudaGetLastError(), or the
+// driver's error code when a bf16 tensor map cannot be encoded.
 extern "C" int ladcast_fused_attention(const void* q, const void* kn, const void* v,
                                        const float* qcos, const float* qsin,
                                        const float* qw, void* out, float* lse,
@@ -358,14 +453,18 @@ extern "C" int ladcast_fused_attention(const void* q, const void* kn, const void
                                        float scale, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == ladcast::kDtypeBF16) {
+    CUtensorMap tm_k, tm_v;
+    int rc = hp::encode_bshd_bf16(&tm_k, kn, B, Sk, H, D, BN);
+    if (rc != 0) return rc;
+    rc = hp::encode_bshd_bf16(&tm_v, v, B, Sk, H, D, BN);
+    if (rc != 0) return rc;
     static const cudaError_t attr = cudaFuncSetAttribute(
-        fa_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBf16);
+        fa_bf16_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBf16);
     if (attr != cudaSuccess) return (int)attr;
     const dim3 grid((Sq + BM - 1) / BM, B * H);
-    fa_bf16_kernel<<<grid, kWarps * 32, kSmemBf16, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(kn),
-        static_cast<const bf16*>(v), qcos, qsin, qw, static_cast<bf16*>(out),
-        lse, Sq, Sk, H, eps, scale);
+    fa_bf16_wgmma_kernel<<<grid, kThreads, kSmemBf16, st>>>(
+        tm_k, tm_v, static_cast<const bf16*>(q), qcos, qsin, qw,
+        static_cast<bf16*>(out), lse, Sq, Sk, H, eps, scale);
   } else if (dtype == ladcast::kDtypeF32) {
     static const cudaError_t attr = cudaFuncSetAttribute(
         fa_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemF32);

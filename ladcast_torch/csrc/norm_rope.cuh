@@ -42,25 +42,33 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float v[4]) {
 
 // fp32 RMS-norm of the warp's 128-value row times the weight row, then the
 // interleaved-pair rotation out[2i] = n[2i]*cos - n[2i+1]*sin,
-// out[2i+1] = n[2i+1]*cos + n[2i]*sin. `w`, `cos`, `sin` point at the
-// row's (D,) table rows; every lane of the warp must call this.
-__device__ __forceinline__ void norm_rope4(float v[4], const float* w,
-                                           const float* cos, const float* sin,
-                                           int lane, float eps) {
+// out[2i+1] = n[2i+1]*cos + n[2i]*sin. `wv`, `c`, `s` are this lane's 4
+// values of the row's (D,) weight, cos and sin rows; every lane of the warp
+// must call this.
+__device__ __forceinline__ void norm_rope4(float v[4], const float wv[4],
+                                           const float c[4], const float s[4],
+                                           float eps) {
   float ss = v[0] * v[0] + v[1] * v[1] + v[2] * v[2] + v[3] * v[3];
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, off);
   const float r = rsqrtf(ss * (1.0f / kHeadDim) + eps);
-  float wv[4], c[4], s[4];
-  load4(w + lane * 4, wv);
-  load4(cos + lane * 4, c);
-  load4(sin + lane * 4, s);
   const float n0 = v[0] * r * wv[0], n1 = v[1] * r * wv[1];
   const float n2 = v[2] * r * wv[2], n3 = v[3] * r * wv[3];
   v[0] = n0 * c[0] - n1 * s[0];
   v[1] = n1 * c[1] + n0 * s[1];
   v[2] = n2 * c[2] - n3 * s[2];
   v[3] = n3 * c[3] + n2 * s[3];
+}
+
+// The same with `w`, `cos`, `sin` pointing at the row's (D,) table rows.
+__device__ __forceinline__ void norm_rope4(float v[4], const float* w,
+                                           const float* cos, const float* sin,
+                                           int lane, float eps) {
+  float wv[4], c[4], s[4];
+  load4(w + lane * 4, wv);
+  load4(cos + lane * 4, c);
+  load4(sin + lane * 4, s);
+  norm_rope4(v, wv, c, s, eps);
 }
 
 }  // namespace ladcast

@@ -9,7 +9,9 @@ build runs at first use on a CUDA tensor (or ahead of it, through
 from one (git-ignored there), and otherwise, for an installed package,
 ``ladcast_torch/`` under torch's per-user extension cache
 (``$TORCH_EXTENSIONS_DIR``, by default ``~/.cache/torch_extensions``). A
-finished library is reused; a changed source gets a new directory.
+finished library is reused; a changed source gets a new directory. nvcc
+runs with ``-Xptxas -v``; its output (each kernel's registers, shared
+memory and spills) is kept beside the library as ``lib<name>.log``.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from typing import Dict
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _CHECKOUT = Path(__file__).resolve().parents[2]
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -87,10 +89,17 @@ def build_all() -> Dict[str, Path]:
         if proc.returncode != 0:
             failures.append(f"--- {name} (nvcc rc {proc.returncode})\n{log}")
             continue
+        lib.with_suffix(".log").write_text(log)
         os.replace(tmp, lib)
     if failures:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
     return libs
+
+
+def nvcc_dir() -> Path:
+    """The directory of the nvcc that builds the kernels (its toolkit's
+    ``cuobjdump`` sits beside it)."""
+    return Path(_nvcc()).parent
 
 
 def load(name: str) -> ctypes.CDLL:

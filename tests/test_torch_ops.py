@@ -2,6 +2,9 @@
 embeddings, RoPE tables, the norm+RoPE pass and the attention composite,
 and the fused attention against the Pallas kernel in interpret mode."""
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -168,26 +171,41 @@ def test_fused_plain_bf16_casts_like_kernel():
     np.testing.assert_allclose(got.float().numpy(), ref.numpy(), atol=3e-2)
 
 
-def _tiled_attention(qs, kn, v, fault=None, tile=64):
-    """The CUDA kernel's loop over key tiles, emulated in fp32 with P cast
-    to bf16 before P.V, with an optional fault injected."""
+def _kernel_constant(name):
+    """A ``constexpr int`` of the CUDA attention kernel's source."""
+    src = (Path(__file__).resolve().parent.parent / "ladcast_torch" / "csrc"
+           / "fused_attention.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def _tiled_attention(qs, kn, v, fault=None):
+    """The CUDA kernel's loop over key tiles of BN keys, emulated in fp32
+    with P cast to bf16 before P.V, with an optional fault injected. The
+    tiles come through a ring of kStages slots, as TMA fills them: rows
+    past Sk are zero and keys >= Sk are masked."""
+    tile, stages = _kernel_constant("BN"), _kernel_constant("kStages")
     B, Sk, H, D = kn.shape
     q = qs.float().transpose(1, 2)
+    n = -(-Sk // tile)
+    pad = n * tile - Sk
+    kp = torch.cat([kn.float(), torch.zeros(B, pad, H, D)], 1).transpose(1, 2)
+    vtail = (torch.randn(B, pad, H, D).bfloat16().float()
+             if fault == "unmasked_tail_garbage_v" else torch.zeros(B, pad, H, D))
+    vp = torch.cat([v.float(), vtail], 1).transpose(1, 2)
     m = torch.full(q.shape[:-1] + (1,), -1e30)
     l = torch.zeros_like(m)
     acc = torch.zeros_like(q)
-    for t, lo in enumerate(range(0, Sk, tile)):
+    for t in range(n):
         if fault == "drop_tile" and t == 17:
             continue
-        kt = kn[:, lo:lo + tile].float().transpose(1, 2)
-        vt = v[:, lo:lo + tile].float().transpose(1, 2)
-        pad = tile - kt.shape[2]
-        if fault in ("unmasked_tail_zero_v", "unmasked_tail_garbage_v") and pad:
-            kt = torch.cat([kt, torch.zeros(B, H, pad, D)], 2)
-            vpad = (torch.zeros(B, H, pad, D) if fault == "unmasked_tail_zero_v"
-                    else torch.randn(B, H, pad, D).bfloat16().float())
-            vt = torch.cat([vt, vpad], 2)
+        # a consumer that does not wait on its stage's "full" barrier reads
+        # what the slot held kStages tiles before
+        src = t - stages if fault == "stale_stage" and t >= 9 else t
+        kt = kp[:, :, src * tile:(src + 1) * tile]
+        vt = vp[:, :, src * tile:(src + 1) * tile]
         s = q @ kt.transpose(-1, -2)
+        if fault not in ("unmasked_tail_zero_v", "unmasked_tail_garbage_v"):
+            s[..., Sk - t * tile:] = -1e30
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new)
@@ -200,13 +218,16 @@ def _tiled_attention(qs, kn, v, fault=None, tile=64):
 
 
 @pytest.mark.parametrize("fault", [None, "drop_tile", "unmasked_tail_zero_v",
-                                   "unmasked_tail_garbage_v", "stale_rescale"])
+                                   "unmasked_tail_garbage_v", "stale_rescale",
+                                   "stale_stage"])
 def test_smoke_attention_bf16_check_catches_faults(fault):
     """chip_smoke.py's bf16 check of the attention kernel, at the main
-    path's Sk=2250 (a ragged last tile of 10 keys): it passes a faithful
-    emulation of the kernel's tile loop and fails each injected fault."""
+    path's Sk=2250 (a ragged last tile of 74 keys and 54 padded ones): it
+    passes a faithful emulation of the kernel's tile loop and fails each
+    injected fault."""
     import chip_smoke
 
+    assert (_kernel_constant("BN"), _kernel_constant("kStages")) == (128, 2)
     torch.manual_seed(0)
     S, H, D = 2250, 2, 128
     q, k, v = (torch.randn(1, S, H, D).bfloat16() for _ in range(3))

@@ -56,6 +56,25 @@ def test_kernel_sources_ship_with_the_package():
         assert 'extern "C" int' in text and "cudaGetLastError()" in text
 
 
+def test_profile_categories_name_every_kernel():
+    """chip_smoke.py's profile puts each kernel of ladcast_torch/csrc under
+    its own category, never under "gemm" (whose "wgmma" fragment would take
+    a kernel that issues wgmma) or "other", as mangled or demangled."""
+    import chip_smoke
+
+    own = {"norm_rope": "norm_rope", "fused_attention": "fused_attention",
+           "flash_bwd": "flash_bwd", "flash_plain": "flash_plain (K6)",
+           "dense_conv": "dense_conv (K4)", "depthwise_conv": "depthwise_conv (K5)"}
+    kernels = chip_smoke.csrc_kernels()
+    assert set(kernels) == set(_build.sources()) == set(own)
+    for src, names in kernels.items():
+        assert names, src
+        for name in names:
+            for shown in (name, f"_ZN12_GLOBAL__N_1{len(name)}{name}EPKfS1_",
+                          f"void (anonymous namespace)::{name}(CUtensorMap_st)"):
+                assert chip_smoke.category(shown) == own[src], (src, shown)
+
+
 def test_kernels_build_inside_the_checkout_or_the_user_cache(tmp_path, monkeypatch):
     assert _build._build_root() == ROOT / "build" / "ladcast_torch"
     # an installed package has no pyproject.toml above it
