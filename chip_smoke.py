@@ -13,11 +13,13 @@ out).
 
   1. environment: the card (nvidia-smi), torch and CUDA versions, and the
      build of the CUDA kernels from ``ladcast_torch/csrc`` (one nvcc per
-     source, in parallel); for the attention's library, each kernel's
-     registers, shared memory and spills (``-Xptxas -v``) and its count of
-     wgmma (HGMMA), TMA-load (UTMALDG) and mma.sync (HMMA) instructions
-     (``cuobjdump -sass``): the bf16 K1 must have the first two, not the
-     third, spill nothing and draw no note from ptxas (a serialised wgmma);
+     source, in parallel); for the attention's and the two convs'
+     libraries, each kernel's (each template instance's) registers, shared
+     memory and spills (``-Xptxas -v``) and its count of wgmma (HGMMA),
+     TMA-load (UTMALDG) and mma.sync (HMMA) instructions (``cuobjdump
+     -sass``): the bf16 K1 must have the first two, not the third, and every
+     instance of the bf16 K4 wgmma and no mma.sync; both spill nothing and
+     draw no note from ptxas (a serialised wgmma);
   2. kernels: each kernel against its plain PyTorch version on the card, in
      bf16 and fp32, at the main path's shapes (B=20, S=2250 dual- and
      single-stream tables, S=450 refiner tables) and a ragged small case,
@@ -34,9 +36,11 @@ out).
      shape of the shipped DCAE and at small ragged shapes: in bf16 at the
      batches the paths give them (the decoder's shapes at B=80, the bench
      path's decode, and B=40, the forecast path's chunk; the encoder's at
-     B=1), in fp32 at B=2; each timed, with cuDNN's ``F.conv2d`` on
-     channels-last tensors as the yardstick (the port calls it only under
-     ``CONV_MODE = "library"``);
+     B=1), in fp32 at B=2; each timed, the bf16 K4 on its packed weight
+     as the path runs it (the packing timed on its own, ``pack_ms``), with
+     cuDNN's ``F.conv2d`` on channels-last tensors as the yardstick (the
+     port calls it only under ``CONV_MODE = "library"``), the rate and the
+     bound's share of the time;
   2b. backward kernels: the lse variant of the attention kernel and the
      flash backward (dq, dk/dv) against their plain versions, bf16 and
      fp32, at the training shapes (B=4, S=2250 dual- and single-stream
@@ -215,20 +219,53 @@ def csrc_kernels():
 SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
 
 
+_BUILTIN_TYPES = {"f": "float", "d": "double", "i": "int", "b": "bool"}
+
+
+def kernel_instance(text, name):
+    """``name``, or ``name<args>`` for a template instance, from the first
+    mangled symbol of ``name`` in ``text`` (an Itanium template argument
+    list: literals, length-prefixed names, builtin types)."""
+    j = text.find(name) + len(name)
+    if not text.startswith("I", j):
+        return name
+    args, j = [], j + 1
+    while j < len(text) and text[j] != "E":
+        lit = re.compile(r"L[a-z](n?\d+)E").match(text, j)
+        num = re.compile(r"\d+").match(text, j)
+        if lit:
+            args.append(lit.group(1).replace("n", "-"))
+            j = lit.end()
+        elif num:
+            n = int(num.group())
+            args.append(text[num.end():num.end() + n])
+            j = num.end() + n
+        else:
+            args.append(_BUILTIN_TYPES.get(text[j], text[j]))
+            j += 1
+    return f"{name}<{', '.join(args)}>"
+
+
 def kernel_report(lib_name):
-    """{kernel: {"ptxas": registers / barriers / shared memory line, "frame":
-    stack and spill line, "warnings": ptxas's warnings and performance notes
-    (such as wgmma serialised), "sass": {op: count}}} for the kernels of one
-    built library, from nvcc's ``-Xptxas -v`` log and ``cuobjdump -sass``."""
+    """{kernel or template instance: {"ptxas": registers / barriers / shared
+    memory line, "frame": stack and spill line, "warnings": ptxas's warnings
+    and performance notes (such as wgmma serialised), "sass": {op: count}}}
+    for the kernels of one built library, from nvcc's ``-Xptxas -v`` log and
+    ``cuobjdump -sass``."""
     from ladcast_torch.ops import _build
 
     lib = _build.build_all()[lib_name]
     names = csrc_kernels()[lib_name]
-    report = {n: {"ptxas": None, "frame": None, "warnings": [], "sass": {}}
-              for n in names}
+    report = {}
 
     def which(text):
-        return next((n for n in names if n in text), None)
+        """The kernel (instance) a line names, entered in the report."""
+        name = next((n for n in names if n in text), None)
+        if name is None:
+            return None
+        key = kernel_instance(text, name)
+        report.setdefault(key, {"ptxas": None, "frame": None, "warnings": [], "sass": {}})
+        return key
 
     cur = None
     for line in lib.with_suffix(".log").read_text().splitlines():
@@ -244,12 +281,19 @@ def kernel_report(lib_name):
                           capture_output=True, text=True, timeout=300, check=True).stdout
     op = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)")
     for section in sass.split("Function : ")[1:]:
-        name = which(section.splitlines()[0])
-        if name is None:
+        key = which(section.splitlines()[0])
+        if key is None:
             continue
         ops = [m.group(1) for m in op.finditer(section)]
-        report[name]["sass"] = {o: ops.count(o) for o in SASS_OPS}
+        report[key]["sass"] = {o: ops.count(o) for o in SASS_OPS}
     return report
+
+
+def clean_build(rec):
+    """Whether a kernel_report entry spills nothing and drew no warning or
+    note from ptxas."""
+    return (not rec["warnings"] and bool(rec["frame"])
+            and "0 bytes spill stores, 0 bytes spill loads" in rec["frame"])
 
 
 def bf16_ulp(x):
@@ -492,10 +536,12 @@ def conv_kernel_phase(peaks):
             # lecun-normal scale, as the model's weights: outputs of O(1)
             w = rand((k, k, Cin, Cout), (k * k * Cin) ** -0.5, dtype)
             w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            # what the path passes: bf16 the packed tiles, fp32 HWIO
+            wk = dc.pack_dense_weight(w) if dtype == torch.bfloat16 else w
             flops = 2 * k * k * Cin * Cout * B * H * W
             nbytes = (x.numel() + w.numel() + B * H * W * Cout) * x.element_size()
             for circular in (True, False):
-                out = dc.dense_conv_forward(x, w, pads, circular)
+                out = dc.dense_conv_forward(x, wk, pads, circular)
                 torch.cuda.synchronize()
                 ref = dc.dense_conv_plain(x, w, pads, circular)
                 rec = {"phase": "conv_kernel", "kernel": "dense_conv",
@@ -507,17 +553,20 @@ def conv_kernel_phase(peaks):
                                peak_bf16 if dtype == torch.bfloat16 else peak_f32, bw)}
                 if kind == "production":
                     rec["ms"] = time_ms(
-                        lambda: dc.dense_conv_forward(x, w, pads, circular), **tkw)
+                        lambda: dc.dense_conv_forward(x, wk, pads, circular), **tkw)
                     rec["plain_ms"] = time_ms(
                         lambda: dc.dense_conv_plain(x, w, pads, circular), **tkw)
                     rec["library_ms"] = time_ms(library(x, w_oihw, p, circular, 1),
                                                 **tkw)
+                    if dtype == torch.bfloat16 and circular:
+                        rec["pack_ms"] = time_ms(lambda: dc.pack_dense_weight(w), **tkw)
+                    rec.update(rates(flops, rec))
                 emit(rec)
                 results["dense_conv"].append(rec)
                 if not (rec["ok"] and rec["finite"]):
                     raise AssertionError(f"dense_conv {rec}")
                 del out, ref
-            del x, w, w_oihw
+            del x, w, wk, w_oihw
         cases = ([("small", *c) for c in dw_small]
                  + [("production", B, *c) for B, _, depthwise in production
                     for c in depthwise])
@@ -547,6 +596,7 @@ def conv_kernel_phase(peaks):
                         x, kk, pads, circular), **tkw)
                     rec["library_ms"] = time_ms(library(x, w_oihw, p, circular, C),
                                                 **tkw)
+                    rec.update(rates(flops, rec))
                 emit(rec)
                 results["depthwise_conv"].append(rec)
                 if not (rec["ok"] and rec["finite"]):
@@ -1371,8 +1421,8 @@ CATEGORIES = [("fused_attention", ("fa_bf16_wgmma_kernel", "fa_f32_kernel")),
               ("flash_bwd", ("bwd_dq_", "bwd_dkv_")),
               ("norm_rope", ("norm_rope_kernel",)),
               ("flash_plain (K6)", ("fa_plain_kernel",)),
-              ("dense_conv (K4)", ("conv_bf16_kernel", "conv_f32_kernel")),
-              ("depthwise_conv (K5)", ("dw_kernel",)),
+              ("dense_conv (K4)", ("conv_bf16_wgmma_kernel", "conv_f32_kernel")),
+              ("depthwise_conv (K5)", ("dw_rows_kernel",)),
               ("foreach (AdamW, EMA, norms)", ("multi_tensor_apply",)),
               ("cudnn_conv", ("fprop", "dgrad", "conv", "winograd", "nchwToNhwc",
                               "nhwcToNchw")),
@@ -1472,13 +1522,21 @@ def main():
                     "bytes_per_s": peaks[2]}})
     # K1 in bf16 must be the Hopper kernel: wgmma, TMA loads, no mma.sync,
     # no spills, and no note of ptxas's (a serialised wgmma)
-    report = kernel_report("fused_attention")
-    emit({"phase": "kernel_build", "library": "fused_attention", "kernels": report})
-    k1 = report["fa_bf16_wgmma_kernel"]
+    reports = {}
+    for lib in ("fused_attention", "dense_conv", "depthwise_conv"):
+        reports[lib] = kernel_report(lib)
+        emit({"phase": "kernel_build", "library": lib, "kernels": reports[lib]})
+    k1 = reports["fused_attention"]["fa_bf16_wgmma_kernel"]
     if (not k1["sass"].get("HGMMA") or not k1["sass"].get("UTMALDG")
-            or k1["sass"].get("HMMA") or k1["warnings"] or not k1["frame"]
-            or "0 bytes spill stores, 0 bytes spill loads" not in k1["frame"]):
+            or k1["sass"].get("HMMA") or not clean_build(k1)):
         raise AssertionError(f"fa_bf16_wgmma_kernel as built: {k1}")
+    # K4 in bf16 must be the Hopper kernel in every instance: wgmma, no
+    # mma.sync, no spills, no note of ptxas's
+    k4 = {k: v for k, v in reports["dense_conv"].items()
+          if k.startswith("conv_bf16_wgmma_kernel")}
+    if not k4 or any(not v["sass"].get("HGMMA") or v["sass"].get("HMMA")
+                     or not clean_build(v) for v in k4.values()):
+        raise AssertionError(f"conv_bf16_wgmma_kernel as built: {k4}")
 
     t0 = time.perf_counter()
     results = kernel_phase(peaks)

@@ -1,8 +1,8 @@
-// Shared device helpers of the mma.sync tensor-core kernels (the attention
-// backward, the dense conv): cp.async copies into shared memory, ldmatrix
-// loads of mma fragments, and the bf16 mma.sync.m16n8k16 tensor-core
-// product with fp32 accumulation; smem_addr and pack_bf16 serve the Hopper
-// kernels too (hopper.cuh).
+// Shared device helpers of the mma.sync tensor-core kernel (the attention
+// backward): cp.async copies into shared memory (the conv kernels' copies
+// too), ldmatrix loads of mma fragments, and the bf16 mma.sync.m16n8k16
+// tensor-core product with fp32 accumulation; smem_addr and pack_bf16
+// serve the Hopper kernels too (hopper.cuh).
 #pragma once
 
 #include <cuda_bf16.h>

@@ -56,14 +56,14 @@ class SphereConv(nn.Conv2d):
 
     def _packed_weight(self, dtype):
         """``pack_weight`` of the weight in ``dtype``, kept while the weight
-        stays as it is. Under grad mode it is repacked on every call: the
-        repacking is then part of the graph."""
+        stays as it is; None under grad mode, where ``sphere_conv2d`` lays
+        the weight out inside the graph, so that its gradient flows."""
         w = self.weight
         if torch.is_grad_enabled():
-            return pack_weight(w.to(dtype))
+            return None
         key = (w.data_ptr(), w._version, w.device, dtype)
         if self._packed is None or self._packed[0] != key:
-            self._packed = (key, pack_weight(w.detach().to(dtype)))
+            self._packed = (key, pack_weight(w.detach().to(dtype), self.groups))
         return self._packed[1]
 
     def forward(self, x):

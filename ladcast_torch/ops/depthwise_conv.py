@@ -23,7 +23,7 @@ import torch.nn.functional as F
 from ladcast_torch.ops import _launch
 from ladcast_torch.ops.dense_conv import NO_PAD, Pads, out_hw, pad_nhwc
 
-KERNEL_WIDTHS = (3, 5)  # the kw the CUDA kernel is instantiated for
+KERNEL_SIZES = (3, 5)  # the square kernels the CUDA kernel is built for
 
 
 def depthwise_same_conv_plain(x: torch.Tensor, k: torch.Tensor,
@@ -56,9 +56,9 @@ def depthwise_same_conv_forward(x: torch.Tensor, k: torch.Tensor,
                         "depthwise_same_conv")
     B, H, W, C = x.shape
     kh, kw, _ = k.shape
-    if kw not in KERNEL_WIDTHS:
-        raise ValueError(f"depthwise_same_conv: kernel width {kw}, the CUDA "
-                         f"kernel takes {KERNEL_WIDTHS}")
+    if kh != kw or kw not in KERNEL_SIZES:
+        raise ValueError(f"depthwise_same_conv: a {kh}x{kw} kernel, the CUDA "
+                         f"kernel takes square ones of {KERNEL_SIZES}")
     Ho, Wo = out_hw(x.shape, kh, kw, pads, circular_w)
     if Ho < 1 or Wo < 1:
         raise ValueError(f"depthwise_same_conv: no output for x "

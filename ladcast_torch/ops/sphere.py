@@ -24,12 +24,16 @@ torch OIHW. :data:`CONV_MODE` picks how the convolution runs:
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
 
-from ladcast_torch.ops.dense_conv import dense_conv
+from ladcast_torch.ops.dense_conv import (
+    PackedDenseWeight,
+    dense_conv,
+    pack_dense_weight,
+)
 from ladcast_torch.ops.depthwise_conv import depthwise_same_conv
 
 # The counterpart of the JAX package's LADCAST_PALLAS_DENSE /
@@ -72,11 +76,15 @@ def conv2d_nhwc(x: torch.Tensor, weight: torch.Tensor,
                     groups=groups).permute(0, 2, 3, 1)
 
 
-def pack_weight(weight: torch.Tensor) -> torch.Tensor:
-    """An OIHW kernel in the kernels' layout: HWIO (kh, kw, C_in / groups,
-    C_out), contiguous. ``sphere_conv2d`` takes it as ``packed`` so that a
-    layer can repack once per weight and not once per call."""
-    return weight.permute(2, 3, 1, 0).contiguous()
+def pack_weight(weight: torch.Tensor, groups: int = 1):
+    """An OIHW kernel in the layout its kernel reads: for a dense conv
+    (``groups == 1``) K4's packed tiles (``ops.dense_conv.pack_dense_weight``
+    of the HWIO weight), for a depthwise one the (kh, kw, C) taps,
+    contiguous. ``sphere_conv2d`` takes it as ``packed`` so that a layer can
+    repack once per weight and not once per call."""
+    if groups == 1:
+        return pack_dense_weight(weight.permute(2, 3, 1, 0))
+    return weight[:, 0].permute(1, 2, 0).contiguous()
 
 
 def _strip_conv(strip, weight, groups, pad_h=(0, 0)):
@@ -103,12 +111,14 @@ def _sphere_conv2d_fused(x, weight, bias, p, groups, packed):
     H, wrap columns in W, both inside the kernel), then the pole rows."""
     B, H, W, C = x.shape
     kh = 2 * p + 1
-    k = pack_weight(weight) if packed is None else packed
     pads = ((p, p), (p, p))
     if groups == 1:
+        # HWIO in grad mode (differentiable), the packed tiles otherwise
+        k = weight.permute(2, 3, 1, 0).contiguous() if packed is None else packed
         out = dense_conv(x, k, pads, True)
     elif groups == C and weight.shape[0] == C and weight.shape[1] == 1:
-        out = depthwise_same_conv(x, k[:, :, 0, :], pads, True)
+        k = pack_weight(weight, groups) if packed is None else packed
+        out = depthwise_same_conv(x, k, pads, True)
     else:
         raise ValueError(f"sphere_conv2d: groups {groups} with {C} -> "
                          f"{weight.shape[0]} channels is neither dense nor "
@@ -177,12 +187,13 @@ def sphere_conv2d(
     *,
     padding: Optional[int] = None,
     groups: int = 1,
-    packed: Optional[torch.Tensor] = None,
+    packed: Optional[Union[torch.Tensor, PackedDenseWeight]] = None,
 ) -> torch.Tensor:
     """(B, H, W, C_in) -> (B, H, W, C_out); weight (C_out, C_in/groups,
     k, k) with k = 2*padding + 1 > 1, dense (``groups == 1``) or depthwise
-    (``groups == C_in == C_out``). ``packed`` is ``pack_weight(weight)``,
-    kept by the caller; only the ``"kernel"`` mode reads it.
+    (``groups == C_in == C_out``). ``packed`` is ``pack_weight(weight,
+    groups)``, kept by the caller; only the ``"kernel"`` mode reads it, and
+    a packed dense weight gets no gradient.
 
     Under ``CONV_MODE = "kernel"`` the fused-boundary form runs (module
     docstring); under ``"library"``, :func:`sphere_conv2d_library`.

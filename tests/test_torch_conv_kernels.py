@@ -1,8 +1,8 @@
 """The port's conv kernels (K4 dense, K5 depthwise), the plain flash
 attention (K6) and the sphere conv's two modes against the JAX package, in
-fp32 on the CPU, where each wrapper runs its kernel's plain version; and
-an emulation of K4's tile loop that holds chip_smoke.py's bf16 check to
-three injected faults."""
+fp32 on the CPU, where each wrapper runs its kernel's plain version; K4's
+packed weight layout; and emulations of K4's strip loop and K5's row walk
+that hold chip_smoke.py's bf16 check to injected faults."""
 
 import jax
 import jax.numpy as jnp
@@ -116,6 +116,15 @@ def test_conv_wrappers_check_their_inputs():
     xm, km = x.to("meta"), k.to("meta")
     with pytest.raises(ValueError, match="expected cpu or cuda"):
         t_dc.dense_conv_forward(xm, km, SAME3)
+    # a packed weight must hold the tiles the bf16 kernel reads
+    packed = t_dc.pack_dense_weight(k)
+    assert tuple(packed.data.shape) == (1, 1, 9, 96, 64)
+    bad = t_dc.PackedDenseWeight(packed.data[..., :32, :], 3, 3, 3, 2)
+    with pytest.raises(ValueError, match="packed weight of shape"):
+        t_dc.dense_conv_forward(xm, bad, SAME3)
+    with pytest.raises(ValueError, match="expected cpu or cuda"):
+        t_dc.dense_conv_forward(xm, t_dc.PackedDenseWeight(packed.data.to("meta"),
+                                                           3, 3, 3, 2), SAME3)
     with pytest.raises(ValueError, match="expected cpu or cuda"):
         t_dw.depthwise_same_conv_forward(xm, km[..., 0].contiguous(), SAME3)
 
@@ -143,10 +152,61 @@ def test_sphere_conv2d_modes_match_jax(k, cin, cout, groups, monkeypatch):
     np.testing.assert_allclose(got["kernel"], got["library"], atol=1e-4, rtol=1e-5)
     # a kept repacked weight gives the same result
     monkeypatch.setattr(t_sphere, "CONV_MODE", "kernel")
-    packed = t_sphere.pack_weight(w)
+    packed = t_sphere.pack_weight(w, groups)
     np.testing.assert_array_equal(
         t_sphere.sphere_conv2d(_t(x), w, _t(b), groups=groups, packed=packed).numpy(),
         got["kernel"])
+
+
+CHANNEL_PAIRS = [(84, 84), (89, 252), (126, 126), (252, 89), (252, 252)]
+
+
+@pytest.mark.parametrize("cin,cout", CHANNEL_PAIRS)
+def test_packed_dense_weight_unpacks_to_hwio(cin, cout):
+    """K4's packed layout: (N tiles, channel steps, taps, BN, 64) tiles,
+    K-major and swizzled, zero past cin and cout, and unpacking gives the
+    HWIO weight back."""
+    rng = np.random.RandomState(cin + cout)
+    w = _t(rng.randn(3, 3, cin, cout).astype(np.float32)).bfloat16()
+    packed = t_dc.pack_dense_weight(w)
+    bn = t_dc.n_tile(cout)
+    assert bn == min(n for n in t_dc.N_TILES if n >= cout or n == 256)
+    n_t, n_s = -(-cout // bn), -(-cin // 64)
+    assert tuple(packed.data.shape) == (n_t, n_s, 9, bn, 64)
+    assert packed.data.dtype == torch.bfloat16 and packed.data.is_contiguous()
+    assert torch.equal(packed.unpack(), w)
+    # element (tile t, step s, tap, row n, chunk j ^ n % 8, e) is
+    # w[tap, 64 s + 8 j + e, bn t + n]; everything past cin or cout is zero
+    full = torch.zeros(9, n_s * 64, n_t * bn, dtype=torch.bfloat16)
+    full[:, :cin, :cout] = w.reshape(9, cin, cout)
+    rows = torch.arange(bn)[:, None]
+    want = full.reshape(9, n_s, 64, n_t, bn).permute(3, 1, 0, 4, 2)
+    want = want.reshape(n_t, n_s, 9, bn, 8, 8)
+    got = packed.data.reshape(n_t, n_s, 9, bn, 8, 8)
+    assert torch.equal(got[..., rows, torch.arange(8)[None, :] ^ (rows % 8), :], want)
+    assert int((packed.data != 0).sum()) == int((w != 0).sum())
+
+
+@pytest.mark.parametrize("cin,cout", CHANNEL_PAIRS[:4])
+def test_sphere_conv2d_packed_weight_matches_jax(cin, cout, monkeypatch):
+    """``sphere_conv2d`` given K4's packed weight equals it without, in both
+    ``CONV_MODE``s, and the JAX sphere conv, at the DCAE's channel counts
+    that are no multiple of 8."""
+    rng = np.random.RandomState(cin * cout)
+    x = rng.randn(1, 4, 6, cin).astype(np.float32)
+    w_hwio = (rng.randn(3, 3, cin, cout) / np.sqrt(9 * cin)).astype(np.float32)
+    b = rng.randn(cout).astype(np.float32)
+    want = np.asarray(j_sphere.sphere_conv2d(
+        jnp.asarray(x), jnp.asarray(w_hwio), jnp.asarray(b)))
+    w = _t(w_hwio.transpose(3, 2, 0, 1))
+    packed = t_sphere.pack_weight(w)
+    assert isinstance(packed, t_dc.PackedDenseWeight)
+    for mode in ("kernel", "library"):
+        monkeypatch.setattr(t_sphere, "CONV_MODE", mode)
+        plain = t_sphere.sphere_conv2d(_t(x), w, _t(b)).numpy()
+        got = t_sphere.sphere_conv2d(_t(x), w, _t(b), packed=packed).numpy()
+        np.testing.assert_array_equal(got, plain)
+        np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-5)
 
 
 def test_sphere_conv2d_gradients_agree_between_modes(monkeypatch):
@@ -216,51 +276,72 @@ def test_dot_product_attention_bias_and_gradients():
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), atol=1e-5, rtol=1e-4)
 
 
-# ------------------------------------ chip_smoke's bf16 check of K4 -------
+# ------------------------------ chip_smoke's bf16 check of K4 and K5 -----
 
-def _tiled_dense_conv(x, w, p, fault=None, bm=128, bk=64):
-    """The CUDA kernel's loop, emulated: tiles of ``bm`` output pixels of a
-    frame running across image rows, the kh*kw taps x Cin in steps of
-    ``bk`` channels, fp32 accumulation of bf16 products, circular W, one
-    cast at the store; with an optional fault injected."""
+def _k4_tiling(Ho, Wo):
+    """(TR, TC): the bf16 K4's M tile for a 3x3 conv (``plan`` in
+    csrc/dense_conv.cu, whose strips fit at these widths): whole output
+    rows where Wo <= 128, else the fewest column tiles of equal width."""
+    tc = -(-Wo // -(-Wo // 128))
+    return min(128 // tc, Ho), tc
+
+
+def _tiled_dense_conv(x, w, p, fault=None, bk=64):
+    """The bf16 K4's loop, emulated: M tiles of TR whole output rows of TC
+    columns; per step of ``bk`` input channels one strip of (TR + kh - 1) x
+    (TC + kw - 1) input pixels (rows outside H zero, the W pads the wrapped
+    columns), from which every tap reads its A: tap (dy, dx) of tile pixel
+    (r, c) is strip pixel (r + dy, c + dx). fp32 accumulation of bf16
+    products, circular W, one cast at the store; with an optional fault
+    injected."""
     B, H, W, Cin = x.shape
     kh, kw, _, Cout = w.shape
+    tr, tc = _k4_tiling(H, W)
     xf = x.float().reshape(B * H, W, Cin)  # rows of all frames, as in memory
     wf = w.float()
-    out = torch.empty(B, H * W, Cout)
-    pix = torch.arange(H * W)
+    out = torch.empty(B, H, W, Cout)
     for b in range(B):
-        for m0 in range(0, H * W, bm):
-            oh, ow = pix[m0:m0 + bm] // W, pix[m0:m0 + bm] % W
-            acc = torch.zeros(len(oh), Cout)
-            for dy in range(kh):
-                for dx in range(kw):
-                    if fault == "drop_tap" and (dy, dx) == (2, 1):
-                        continue
-                    ih, iw = oh + dy - p, ow + dx - p
-                    valid = (ih >= 0) & (ih < H)
-                    if fault == "missing_wrap_column":
-                        valid = valid & (iw >= 0) & (iw < W)
-                    if fault == "unmasked_halo_row":
-                        # the rows just outside the frame, as they lie in
-                        # memory: the neighbouring frames' (or, at the ends
-                        # of the buffer, this frame's far) rows
-                        valid = torch.ones_like(valid)
-                    rows = (b * H + ih) % (B * H)
-                    for c0 in range(0, Cin, bk):
-                        a = xf[rows, iw % W, c0:c0 + bk] * valid[:, None]
-                        acc += a @ wf[dy, dx, c0:c0 + bk]
-            out[b, m0:m0 + bm] = acc
-    return out.reshape(B, H, W, Cout).bfloat16()
+        for oh0 in range(0, H, tr):
+            for ow0 in range(0, W, tc):
+                rows, cols = min(tr, H - oh0), min(tc, W - ow0)
+                ih = oh0 - p + torch.arange(rows + kh - 1)
+                iw = ow0 - p + torch.arange(cols + kw - 1)
+                valid = ((ih >= 0) & (ih < H))[:, None] & torch.ones(len(iw), dtype=bool)
+                if fault == "missing_wrap_column":
+                    valid = valid & ((iw >= 0) & (iw < W))[None, :]
+                if fault == "unmasked_halo_row":
+                    # the rows just outside the frame, as they lie in
+                    # memory: the neighbouring frames' (or, at the ends of
+                    # the buffer, this frame's far) rows
+                    valid = torch.ones_like(valid)
+                src = xf[((b * H + ih) % (B * H))[:, None], (iw % W)[None, :]]
+                acc = torch.zeros(rows, cols, Cout)
+                for c0 in range(0, Cin, bk):
+                    strip = src[..., c0:c0 + bk] * valid[..., None]
+                    # one zero row below the strip, for the fault's reads
+                    strip = torch.cat([strip, torch.zeros_like(strip[:1])])
+                    for dy in range(kh):
+                        for dx in range(kw):
+                            if fault == "drop_tap" and (dy, dx) == (2, 1):
+                                continue
+                            a = strip[dy:dy + rows, dx:dx + cols].clone()
+                            if (fault == "tap_crosses_row" and dx == kw - 1
+                                    and ow0 + cols == W):
+                                # the row's last pixel reads on into the
+                                # next strip row's first input column
+                                a[:, -1] = strip[dy + 1:dy + 1 + rows, p]
+                            acc += a @ wf[dy, dx, c0:c0 + bk]
+                out[b, oh0:oh0 + rows, ow0:ow0 + cols] = acc
+    return out.bfloat16()
 
 
 @pytest.mark.parametrize("fault", [None, "drop_tap", "unmasked_halo_row",
-                                   "missing_wrap_column"])
+                                   "missing_wrap_column", "tap_crosses_row"])
 def test_smoke_conv_bf16_check_catches_faults(fault):
     """chip_smoke.py's bf16 check of the dense conv kernel, at the decoder's
-    first shape (15 x 30: a 128-pixel tile spans 4 rows and a ragged last
-    tile) with 1/sqrt(9 Cin)-scaled weights as there: it passes a faithful
-    emulation of the kernel's tile loop and fails each injected fault."""
+    first shape (15 x 30: M tiles of 4 rows, the last one of 3) with
+    1/sqrt(9 Cin)-scaled weights as there: it passes a faithful emulation
+    of the kernel's strip loop and fails each injected fault."""
     import chip_smoke
 
     torch.manual_seed(0)
@@ -270,6 +351,70 @@ def test_smoke_conv_bf16_check_catches_faults(fault):
     out = _tiled_dense_conv(x, w, 1, fault)
     rec = chip_smoke.compare(
         out, ref, chip_smoke.kernel_tolerance("dense_conv", "bfloat16", ref))
+    assert rec["ok"] == (fault is None), rec
+
+
+def _walked_depthwise_conv(x, k, p, fault=None, tc=32, max_rows=16, ahead=2):
+    """The K5 kernel's loop, emulated: blocks of ``tc`` output columns walk
+    runs of at most ``max_rows`` output rows (the frame split evenly); each
+    input row of a walk, with its K - 1 halo columns wrapped, goes once into
+    a ring of K + ``ahead`` rows, ``ahead`` rows before it is first used,
+    and each output row reads its K rows from the ring. fp32 accumulation,
+    circular W, one cast at the store; with an optional fault injected."""
+    B, H, W, C = x.shape
+    K = k.shape[0]
+    walks = -(-H // max_rows)
+    rh = -(-H // walks)
+    slots = K + ahead
+    xf, kf = x.float(), k.float()
+    out = torch.empty(B, H, W, C)
+    for b in range(B):
+        for oh0 in range(0, H, rh):
+            n_out = min(rh, H - oh0)
+            n_in = n_out + K - 1
+            for w0 in range(0, W, tc):
+                cols = min(tc, W - w0)
+                iw = (w0 - p + torch.arange(cols + K - 1)) % W
+                ring = torch.zeros(slots, cols + K - 1, C)
+
+                def stage(r):
+                    ih = oh0 - p + r
+                    ring[r % slots] = xf[b, ih, iw] if 0 <= ih < H else 0.0
+
+                for r in range(min(K + ahead - 1, n_in)):
+                    stage(r)
+                for i in range(n_out):
+                    r = i + K + ahead - 1
+                    if r < n_in and not (fault == "stale_window_row"
+                                         and i == n_out // 2):
+                        stage(r)
+                    acc = torch.zeros(cols, C)
+                    for dy in range(K):
+                        row = ring[(i + dy) % slots]
+                        for dx in range(K):
+                            acc += row[dx:dx + cols] * kf[dy, dx]
+                    out[b, oh0 + i, w0:w0 + cols] = acc
+    return out.bfloat16()
+
+
+@pytest.mark.parametrize("shape,ksz", [((2, 15, 30, 136), 3), ((1, 30, 60, 40), 5)])
+@pytest.mark.parametrize("fault", [None, "stale_window_row"])
+def test_smoke_depthwise_bf16_check_catches_faults(shape, ksz, fault):
+    """chip_smoke.py's bf16 check of the depthwise kernel, at the DCAE's
+    frame sizes with 1/K-scaled taps as there: it passes a faithful
+    emulation of the kernel's row walk (one walk of 15 rows, two of 15 at
+    30 x 60 with two column tiles) and fails a ring whose window is not
+    advanced once."""
+    import chip_smoke
+
+    torch.manual_seed(1)
+    x = torch.randn(*shape).bfloat16()
+    k = (torch.randn(ksz, ksz, shape[-1]) / ksz).bfloat16()
+    pads = ((ksz // 2,) * 2,) * 2
+    ref = t_dw.depthwise_same_conv_plain(x, k, pads, True)
+    out = _walked_depthwise_conv(x, k, ksz // 2, fault)
+    rec = chip_smoke.compare(
+        out, ref, chip_smoke.kernel_tolerance("depthwise_conv", "bfloat16", ref))
     assert rec["ok"] == (fault is None), rec
 
 
@@ -348,6 +493,8 @@ def test_conv_and_flash_kernels_match_plain_on_cuda(dtype):
          (x, w, SAME3, True)),
         ("dense_conv", t_dc.dense_conv_forward, t_dc.dense_conv_plain,
          (x, w, SAME3, False)),
+        ("dense_conv", t_dc.dense_conv_forward, t_dc.dense_conv_plain,
+         (x, t_dc.pack_dense_weight(w), SAME3, True)),
         ("depthwise_conv", t_dw.depthwise_same_conv_forward,
          t_dw.depthwise_same_conv_plain, (xd, kd, SAME5, True)),
         ("depthwise_conv", t_dw.depthwise_same_conv_forward,
