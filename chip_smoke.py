@@ -8,18 +8,20 @@
 Phases, each printed as JSON lines; any failure raises, so the script exits
 non-zero and never prints the last line. Three paths of the port run: the
 ensemble rollout of the bench workload (inference), the AR trainer of the
-375M DiT, and the forecast CLI (hub checkpoints in, latent and field files
-out).
+375M and the 1.6B DiT, and the forecast CLI (hub checkpoints in, latent and
+field files out).
 
   1. environment: the card (nvidia-smi), torch and CUDA versions, and the
      build of the CUDA kernels from ``ladcast_torch/csrc`` (one nvcc per
-     source, in parallel); for the attention's and the two convs'
-     libraries, each kernel's (each template instance's) registers, shared
-     memory and spills (``-Xptxas -v``) and its count of wgmma (HGMMA),
-     TMA-load (UTMALDG) and mma.sync (HMMA) instructions (``cuobjdump
-     -sass``): the bf16 K1 must have the first two, not the third, and every
-     instance of the bf16 K4 wgmma and no mma.sync; both spill nothing and
-     draw no note from ptxas (a serialised wgmma);
+     source, in parallel); for the attention's, the flash backward's and
+     the two convs' libraries, each kernel's (each template instance's)
+     registers, shared memory and spills (``-Xptxas -v``) and its count of
+     wgmma (HGMMA), TMA-load (UTMALDG) and mma.sync (HMMA) instructions
+     (``cuobjdump -sass``): the bf16 K1 and the bf16 K3 pair
+     (``bwd_dq_bf16_wgmma_kernel``, ``bwd_dkv_bf16_wgmma_kernel``) must have
+     the first two, not the third, and every instance of the bf16 K4 wgmma
+     and no mma.sync; all of them spill nothing and draw no note from ptxas
+     (a serialised wgmma);
   2. kernels: each kernel against its plain PyTorch version on the card, in
      bf16 and fp32, at the main path's shapes (B=20, S=2250 dual- and
      single-stream tables, S=450 refiner tables) and a ragged small case,
@@ -44,7 +46,9 @@ out).
   2b. backward kernels: the lse variant of the attention kernel and the
      flash backward (dq, dk/dv) against their plain versions, bf16 and
      fp32, at the training shapes (B=4, S=2250 dual- and single-stream
-     tables, S=450 refiner tables) and a ragged small case, with times,
+     tables, S=450 refiner tables, and the 1.6B's 16 heads at S=2250) and a
+     ragged small case, each backward run twice and required to give the
+     same bits (no atomics), with times, rates,
      bounds and, as yardsticks only, the time of the aten op of SDPA's own
      backend asked for its logsumexp beside the lse variant, and of
      PyTorch's SDPA backward on the same pre-normed inputs beside the
@@ -78,6 +82,16 @@ out).
      kernel backward, none of the backward kernels under the composite);
      the last step's checkpoint must restore into a fresh trainer (the
      whole state: parameters, both moments, count, EMA, step);
+  5b. the 1.6B: ``config.ladcast_1p6b_config`` at full width on seeded
+     weights: its bf16 forward at B=20 (1800 + 450 tokens), finite and
+     launching K1 and K2 once per attention, after a parity check against
+     the plain composite at B=2; ``cli.train_ar.run`` must refuse
+     configs/ladcast_1p6b.yaml as shipped (its parallel: section asks for
+     tensor parallelism and ZeRO), then trains TRAIN_STEPS_1P6B steps with
+     the section dropped, as a one-card user must (remat as the yaml sets
+     it, on the training phase's latents): ms per step, peak memory,
+     losses, and the launches of K1-lse and K3 at 16 heads; the 26 GB
+     checkpoint is not written;
   6. forecast: a seeded 375M DiT (index-sharded) and the shipped DCAE
      (one file) written as hub directories by the port's
      ``save_pretrained``, synthetic ``.npz`` fields with SST NaNs, then
@@ -184,6 +198,21 @@ LADCAST_375M_YAML = {
                 "output_dir": "runs/ladcast_375m", "checkpointing_steps": 50000,
                 "checkpoints_total_limit": 3},
 }
+
+# configs/ladcast_1p6b.yaml as PyYAML reads it: the 375M's settings with the
+# 1.6B's heads and depth, remat, and its parallel: section (a TP + ZeRO mesh,
+# which the port refuses; tests/test_torch_train.py holds this copy to the
+# file too).
+LADCAST_1P6B_YAML = {
+    **LADCAST_375M_YAML,
+    "ar_model": {**LADCAST_375M_YAML["ar_model"], "num_attention_heads": 16,
+                 "num_layers": 5, "num_single_layers": 10, "num_refiner_layers": 3},
+    "general": {**LADCAST_375M_YAML["general"], "remat": True,
+                "compute_dtype": "bfloat16", "snr_gamma": None,
+                "output_dir": "runs/ladcast_1p6b"},
+    "parallel": {"mesh": {"data": -1, "model": 8}, "zero": True},
+}
+TRAIN_STEPS_1P6B = 6
 
 
 RECORDS = None  # --records: a file that also gets every record
@@ -834,7 +863,7 @@ def backward_kernel_phase(peaks):
     import torch
     import torch.nn.functional as F
 
-    from ladcast_torch.config import ladcast_375m_config
+    from ladcast_torch.config import ladcast_1p6b_config, ladcast_375m_config
     from ladcast_torch.models.ladcast_dit import (
         LaDCastTransformer3D,
         segment_tables,
@@ -845,6 +874,7 @@ def backward_kernel_phase(peaks):
     peak_bf16, peak_f32, bw = peaks
     cfg = ladcast_375m_config()
     H, D = cfg.num_attention_heads, cfg.attention_head_dim
+    H_1P6B = ladcast_1p6b_config().num_attention_heads
     scale = 1.0 / D ** 0.5
     with torch.device("meta"):
         tables_of = LaDCastTransformer3D(cfg)
@@ -853,18 +883,20 @@ def backward_kernel_phase(peaks):
     g = torch.Generator(device=dev).manual_seed(2)
     w_a = 1 + 0.1 * torch.randn(D, generator=g, device=dev)
     w_b = 1 + 0.1 * torch.randn(D, generator=g, device=dev)
-    cases = [  # name, B, table segments, timed
-        ("dual_2250", 4, [(1800, rope, w_a), (450, None, w_b)], True),
-        ("single_2250", 4, [(1800, rope, w_a), (450, cond_rope, w_a)], False),
-        ("refiner_450", 4, [(450, cond_rope, w_a)], True),
-        ("ragged_130", 2, [(110, rope, w_a), (20, None, w_b)], False),
+    cases = [  # name, B, heads, table segments, timed
+        ("dual_2250", 4, H, [(1800, rope, w_a), (450, None, w_b)], True),
+        ("single_2250", 4, H, [(1800, rope, w_a), (450, cond_rope, w_a)], False),
+        ("refiner_450", 4, H, [(450, cond_rope, w_a)], True),
+        ("ragged_130", 2, H, [(110, rope, w_a), (20, None, w_b)], False),
+        # the 1.6B's 16 heads, its training batch and tokens
+        ("dual_2250_h16", 4, H_1P6B, [(1800, rope, w_a), (450, None, w_b)], True),
     ]
     results = {"fused_attention_lse": [], "flash_bwd_dq": [], "flash_bwd_dkv": [],
                "flash_bwd_pair": []}
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
         peak = peak_bf16 if dtype == torch.bfloat16 else peak_f32
-        for name, B, segs, timed in cases:
+        for name, B, H, segs, timed in cases:
             S = sum(n for n, _, _ in segs)
             cos, sin, w = segment_tables(segs)
             q, k, v, go = (torch.randn(B, S, H, D, generator=g, device=dev).to(dtype)
@@ -908,7 +940,12 @@ def backward_kernel_phase(peaks):
             bwd_args = (qn, kn, v, go, ref_lse, delta, scale)
             dq = fa.flash_bwd_dq(*bwd_args)
             dk, dv = fa.flash_bwd_dkv(*bwd_args)
+            # no atomics: a second run gives the same bits
+            again = (fa.flash_bwd_dq(*bwd_args), *fa.flash_bwd_dkv(*bwd_args))
             torch.cuda.synchronize()
+            repeats = {"dq": torch.equal(dq, again[0]), "dk": torch.equal(dk, again[1]),
+                       "dv": torch.equal(dv, again[2])}
+            del again
             refs = dict(zip(("dq", "dk", "dv"), fa.flash_bwd_plain(*bwd_args)))
             if timed:
                 qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_(True)
@@ -948,12 +985,15 @@ def backward_kernel_phase(peaks):
                            **compare(o, refs[oname], kernel_tolerance(
                                kname, dname, refs[oname])),
                            "finite": bool(torch.isfinite(o).all()),
+                           "same_bits_twice": repeats[oname],
                            **bound(n_ops * B * H * S * S * D,
                                    n_io * n * es + 2 * stats_bytes, peak, bw),
                            **timing}
+                    if timed:
+                        rec.update(rates(n_ops * B * H * S * S * D, rec))
                     emit(rec)
                     results[kname].append(rec)
-                    if not (rec["ok"] and rec["finite"]):
+                    if not (rec["ok"] and rec["finite"] and rec["same_bits_twice"]):
                         raise AssertionError(f"{kname} {oname} {name} {dname}: {rec}")
             if timed:
                 emit(pair)
@@ -1098,22 +1138,30 @@ def same_tree(a, b):
     return a == b
 
 
-def training_phase(tmp, profile=False):
-    """12 steps of ``cli.train_ar.run`` per backward mode on synthetic
-    latents; the checkpoint of the kernel run restores. With ``profile``,
-    4 more steps of the kernel run's trainer run under the profiler."""
+def synthetic_latents(tmp):
+    """A seeded ``.npz`` of 64 latent frames (15 x 30 x 84) 6 h apart, the
+    training phases' data; returns its path."""
     import numpy as np
-    import torch
 
-    from ladcast_torch.cli import train_ar
     from ladcast_torch.data.time_utils import add_hours_int
-    from ladcast_torch.ops import flash_attention as fa
-    from ladcast_torch.train import checkpoint as ckpt
 
     rng = np.random.RandomState(0)
     latents = os.path.join(tmp, "latents.npz")
     np.savez(latents, latents=rng.randn(64, 15, 30, 84).astype(np.float32),
              timestamps=np.asarray([add_hours_int(2018010100, i) for i in range(64)]))
+    return latents
+
+
+def training_phase(tmp, latents, profile=False):
+    """12 steps of ``cli.train_ar.run`` per backward mode on the synthetic
+    latents; the checkpoint of the kernel run restores. With ``profile``,
+    4 more steps of the kernel run's trainer run under the profiler."""
+    import torch
+
+    from ladcast_torch.cli import train_ar
+    from ladcast_torch.ops import flash_attention as fa
+    from ladcast_torch.train import checkpoint as ckpt
+
     results = {}
     if fa.BWD_MODE != "kernel":
         raise AssertionError(f"the default BWD_MODE is {fa.BWD_MODE!r}, not 'kernel'")
@@ -1176,6 +1224,121 @@ def training_phase(tmp, profile=False):
         del res, hist
         torch.cuda.empty_cache()
     return results
+
+
+def dit_1p6b_phase(tmp, latents):
+    """The 1.6B DiT (configs/ladcast_1p6b.yaml) at full width on seeded
+    weights: its bf16 forward at the inference shape (B=20, 1800 + 450
+    tokens) after a parity check against the plain composite at B=2, then
+    ``cli.train_ar.run`` on the yaml: the shipped file must raise on its
+    parallel: section (tensor parallelism and ZeRO are not ported), and with
+    the section dropped, as a one-card user must, TRAIN_STEPS_1P6B steps run
+    through K1-lse and K3 at 16 heads, remat as the yaml sets it. The
+    steps' 26 GB checkpoint is not written (the 375M training phase checks
+    the checkpoint path)."""
+    import torch
+
+    from ladcast_torch.cli import train_ar
+    from ladcast_torch.config import ladcast_1p6b_config
+    from ladcast_torch.models.ladcast_dit import LaDCastTransformer3D, build_dit
+    from ladcast_torch.ops import flash_attention as fa
+    from ladcast_torch.train import checkpoint as ckpt
+
+    dev = torch.device("cuda")
+    cfg = ladcast_1p6b_config()
+    g = torch.Generator(device=dev).manual_seed(4)
+
+    def inputs(B):
+        return (torch.randn(B, 4, 15, 30, 84, generator=g, device=dev).bfloat16(),
+                torch.randn(B, generator=g, device=dev),
+                torch.randn(B, 1, 15, 30, 84, generator=g, device=dev).bfloat16(),
+                torch.rand(B, generator=g, device=dev))
+
+    torch.cuda.reset_peak_memory_stats()
+    model = build_dit(cfg, dev, torch.bfloat16, seed=13)
+    with torch.device("meta"):
+        plain = LaDCastTransformer3D(dataclasses.replace(cfg, attention_impl="plain"))
+    plain.load_state_dict(model.state_dict(), strict=True, assign=True)
+    plain.eval()
+    x2, x20 = inputs(2), inputs(20)
+    with torch.inference_mode():
+        a, p = model(*x2).float(), plain(*x2).float()
+        rel = ((a - p).norm() / p.norm()).item()
+        _reset_launches(fa)
+        out = model(*x20)
+        torch.cuda.synchronize()
+        fwd_launches = _launches(fa)
+        finite = bool(torch.isfinite(out).all())
+        fwd_ms = time_ms(lambda: model(*x20), rounds=5, inner=1, warmup=1)
+    n_params = sum(t.numel() for t in model.parameters())
+    fwd = {"B": 20, "tokens": [1800, 450], "ms": fwd_ms, "rel_l2_b2": rel,
+           "tol": MODEL_TOL["bfloat16"], "finite": finite,
+           "shape": list(out.shape), "launches": fwd_launches,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+    del model, plain, a, p, out, x2, x20
+    torch.cuda.empty_cache()
+    n_attn = cfg.num_layers + cfg.num_single_layers + cfg.num_refiner_layers
+    if not (finite and rel <= MODEL_TOL["bfloat16"]
+            and fwd["shape"] == [20, 4, 15, 30, 84]
+            and fwd_launches["fused_attention"] == fwd_launches["norm_rope"] == n_attn):
+        raise AssertionError(f"1.6B forward: {fwd}")
+
+    def args(steps, out):
+        return train_ar.build_parser().parse_args(
+            ["--latents", latents, "--num_steps", str(steps), "--output_dir",
+             os.path.join(tmp, out), "--log_every", "1", "--seed", "0"])
+
+    try:
+        train_ar.run(LADCAST_1P6B_YAML, args(0, "1p6b_refused"))
+    except NotImplementedError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("train_ar.run took configs/ladcast_1p6b.yaml's "
+                             "parallel: section")
+    if "M12" not in refusal:
+        raise AssertionError(f"1.6B parallel: section refused with {refusal!r}")
+    one_card = {k: v for k, v in LADCAST_1P6B_YAML.items() if k != "parallel"}
+    skipped = []
+    save_state, ckpt.save_state = ckpt.save_state, lambda mgr, step, state: skipped.append(step)
+    _reset_launches(fa)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        res = train_ar.run(one_card, args(TRAIN_STEPS_1P6B, "1p6b"))
+        wall_s = time.perf_counter() - t0
+    finally:
+        ckpt.save_state = save_state
+    hist = res["history"]
+    step_ms = [r["step_s"] * 1e3 for r in hist]
+    launches = _launches(fa)
+    # remat recomputes the dual- and single-stream blocks (not the refiner)
+    # in the backward, the forward's K2 and K1-lse launches with them
+    fwd_per_step = n_attn + cfg.num_layers + cfg.num_single_layers
+    expected = {k: TRAIN_STEPS_1P6B * n for k, n in (
+        ("norm_rope", fwd_per_step), ("fused_attention", fwd_per_step),
+        ("fused_attention_lse", fwd_per_step), ("flash_bwd_dq", n_attn),
+        ("flash_bwd_dkv", n_attn))}
+    rec = {"phase": "dit_1p6b", "params": n_params, "heads": cfg.num_attention_heads,
+           "layers": [cfg.num_layers, cfg.num_single_layers, cfg.num_refiner_layers],
+           "forward": fwd, "refused_parallel_section": refusal,
+           "training": {"steps": len(hist), "batch": 4, "compute_dtype": "bfloat16",
+                        "remat": one_card["general"]["remat"], "parallel": "dropped",
+                        "median_step_ms": statistics.median(step_ms[2:]),
+                        "step_ms": step_ms, "loss": [r["loss"] for r in hist],
+                        "grad_norm": [r["grad_norm"] for r in hist],
+                        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+                        "run_wall_s": wall_s, "launches": launches,
+                        "expected_launches": expected,
+                        "checkpoint_steps_not_written": skipped}}
+    emit(rec)
+    del res, hist
+    torch.cuda.empty_cache()
+    finite = all(math.isfinite(x) for x in rec["training"]["loss"]
+                 + rec["training"]["grad_norm"])
+    if (rec["training"]["steps"] != TRAIN_STEPS_1P6B or not finite
+            or launches != expected):
+        raise AssertionError(f"1.6B training: {rec}")
+    return rec
 
 
 def model_parity_phase():
@@ -1418,7 +1581,8 @@ def forecast_phase(tmp):
 # ladcast_torch/csrc is named before "gemm", whose "wgmma" would take a
 # kernel that issues wgmma (tests/test_torch_rules.py holds this)
 CATEGORIES = [("fused_attention", ("fa_bf16_wgmma_kernel", "fa_f32_kernel")),
-              ("flash_bwd", ("bwd_dq_", "bwd_dkv_")),
+              ("flash_bwd", ("bwd_dq_bf16_wgmma_kernel", "bwd_dkv_bf16_wgmma_kernel",
+                             "bwd_dq_f32_kernel", "bwd_dkv_f32_kernel")),
               ("norm_rope", ("norm_rope_kernel",)),
               ("flash_plain (K6)", ("fa_plain_kernel",)),
               ("dense_conv (K4)", ("conv_bf16_wgmma_kernel", "conv_f32_kernel")),
@@ -1520,16 +1684,20 @@ def main():
           "libraries": sorted(p.name for p in libs.values()),
           "peaks": {"bf16_flops": peaks[0], "fp32_flops": peaks[1],
                     "bytes_per_s": peaks[2]}})
-    # K1 in bf16 must be the Hopper kernel: wgmma, TMA loads, no mma.sync,
-    # no spills, and no note of ptxas's (a serialised wgmma)
+    # the kernels' registers, spills and SASS; the Hopper kernels must have
+    # no mma.sync, no spills and no note of ptxas's (a serialised wgmma)
     reports = {}
-    for lib in ("fused_attention", "dense_conv", "depthwise_conv"):
+    for lib in ("fused_attention", "flash_bwd", "dense_conv", "depthwise_conv"):
         reports[lib] = kernel_report(lib)
         emit({"phase": "kernel_build", "library": lib, "kernels": reports[lib]})
-    k1 = reports["fused_attention"]["fa_bf16_wgmma_kernel"]
-    if (not k1["sass"].get("HGMMA") or not k1["sass"].get("UTMALDG")
-            or k1["sass"].get("HMMA") or not clean_build(k1)):
-        raise AssertionError(f"fa_bf16_wgmma_kernel as built: {k1}")
+    # K1 and K3 in bf16 must be the Hopper kernels: wgmma, TMA loads
+    for lib, kname in (("fused_attention", "fa_bf16_wgmma_kernel"),
+                       ("flash_bwd", "bwd_dq_bf16_wgmma_kernel"),
+                       ("flash_bwd", "bwd_dkv_bf16_wgmma_kernel")):
+        k = reports[lib][kname]
+        if (not k["sass"].get("HGMMA") or not k["sass"].get("UTMALDG")
+                or k["sass"].get("HMMA") or not clean_build(k)):
+            raise AssertionError(f"{kname} as built: {k}")
     # K4 in bf16 must be the Hopper kernel in every instance: wgmma, no
     # mma.sync, no spills, no note of ptxas's
     k4 = {k: v for k, v in reports["dense_conv"].items()
@@ -1563,8 +1731,12 @@ def main():
     del bench
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        training = training_phase(tmp, args.profile)
-    emit({"phase": "training_done", "wall_s": time.perf_counter() - t0})
+        latents = synthetic_latents(tmp)
+        training = training_phase(tmp, latents, args.profile)
+        emit({"phase": "training_done", "wall_s": time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        dit_1p6b_phase(tmp, latents)
+        emit({"phase": "dit_1p6b_done", "wall_s": time.perf_counter() - t0})
     train_launches = training["kernel"]["launches"]
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1620,6 +1792,10 @@ def main():
         # dq and dk/dv together against the whole plain and SDPA backward
         e["pair"] = {k: pair[k] for k in ("ms", "plain_ms", "library_ms",
                                           "bound_ms", "bound_by")}
+        h16 = next(r for r in results[kname] if r["case"] == "dual_2250_h16"
+                   and r["dtype"] == "bfloat16")
+        e["dual_2250_h16"] = {k: h16[k] for k in ("ms", "plain_ms", "library_ms",
+                                                  "bound_ms", "tflops", "bound_share")}
         summary.append(e)
     for kname in ("dense_conv", "depthwise_conv"):
         case, batch = KERNEL_LINE_CASES[kname]

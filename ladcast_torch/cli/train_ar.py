@@ -104,6 +104,27 @@ _NOT_PORTED = [
 ]
 
 
+def _check_parallel(par_cfg: dict) -> None:
+    """The yaml's ``parallel:`` section, read as the JAX CLI reads it
+    (``mesh`` as a mapping or an "axis=size,..." string, ``zero``). The
+    port trains on one device: a mesh of a ``data`` axis of size 1 (or -1,
+    which fills the one device) trains as if there were no section; any
+    other axis of a size other than 1, or ``zero: true``, raises, as
+    ``--mesh`` and ``--zero`` do."""
+    mesh = par_cfg.get("mesh") or {}
+    if isinstance(mesh, str):
+        pairs = [part.partition("=") for part in mesh.split(",")]
+        sizes = {k.strip(): int(v) if v else -1 for k, _, v in pairs}
+    else:
+        sizes = {str(k): int(v) for k, v in mesh.items()}
+    if (par_cfg.get("zero") or sizes.pop("data", 1) not in (-1, 1)
+            or any(n != 1 for n in sizes.values())):
+        raise NotImplementedError(
+            f"parallel: {par_cfg} in the config: tensor parallelism and ZeRO "
+            f"wait for ROADMAP.md Queue 1 item M12 (parallelism); the port "
+            f"trains on one device, so drop the section to train there")
+
+
 def export_hub(hub_dir: str, model_cfg, tcfg: ARTrainConfig, state) -> None:
     """The diffusers-layout export of a training state: ``ar_model/`` and,
     with EMA, ``ar_model_ema/`` with the EMA metadata in its config.json,
@@ -131,6 +152,7 @@ def run(cfg: dict, args: argparse.Namespace) -> dict:
     for unsupported, msg in _NOT_PORTED:
         if unsupported(args):
             raise NotImplementedError(msg)
+    _check_parallel(cfg.get("parallel") or {})
     device = resolve_device(args.device)
     model_cfg = config_from_dict(LaDCastDiTConfig, cfg.get("ar_model", {}))
     sched_cfg = config_from_dict(EDMSchedulerConfig,

@@ -39,7 +39,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma.cuh"
+#include "cp_async.cuh"
 
 namespace {
 

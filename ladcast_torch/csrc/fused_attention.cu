@@ -94,15 +94,6 @@ constexpr int kSmemBf16 = 2 * kQBytes + 2 * kStages * kTileBytes
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// 2^x on the MUFU unit in one instruction, results below 2^-126 flushed to
-// zero (exp2f keeps them at the cost of extra instructions): such a P adds
-// nothing to a row whose sum is at least 1.
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // Descriptor offsets, in the 16-byte units of the start address field.
 constexpr uint64_t kDescHalfQ = WM * kRowBytes / 16;   // Q's second half row
 constexpr uint64_t kDescHalfK = BN * kRowBytes / 16;   // a tile's second half
@@ -264,17 +255,17 @@ fa_bf16_wgmma_kernel(__grid_constant__ const CUtensorMap tm_k,
     }
     mx0 = fmaxf(m0, mx0 * kLog2e);
     mx1 = fmaxf(m1, mx1 * kLog2e);
-    const float a0 = exp2_ftz(m0 - mx0), a1 = exp2_ftz(m1 - mx1);
+    const float a0 = hp::exp2_ftz(m0 - mx0), a1 = hp::exp2_ftz(m1 - mx1);
     m0 = mx0;
     m1 = mx1;
     l0 *= a0;
     l1 *= a1;
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
-      const float p0 = exp2_ftz(fmaf(sc[4 * j], kLog2e, -mx0));
-      const float p1 = exp2_ftz(fmaf(sc[4 * j + 1], kLog2e, -mx0));
-      const float p2 = exp2_ftz(fmaf(sc[4 * j + 2], kLog2e, -mx1));
-      const float p3 = exp2_ftz(fmaf(sc[4 * j + 3], kLog2e, -mx1));
+      const float p0 = hp::exp2_ftz(fmaf(sc[4 * j], kLog2e, -mx0));
+      const float p1 = hp::exp2_ftz(fmaf(sc[4 * j + 1], kLog2e, -mx0));
+      const float p2 = hp::exp2_ftz(fmaf(sc[4 * j + 2], kLog2e, -mx1));
+      const float p3 = hp::exp2_ftz(fmaf(sc[4 * j + 3], kLog2e, -mx1));
       l0 += p0 + p1;
       l1 += p2 + p3;
       p[2 * j] = pack_bf16(p0, p1);

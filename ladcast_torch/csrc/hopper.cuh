@@ -2,11 +2,12 @@
 // TMA tile loads through a tensor map, bulk copies of contiguous bytes,
 // cp.async completion on an mbarrier, ldmatrix from a shared address, wgmma
 // shared-memory descriptors and the bf16 products the kernels issue (the
-// attention forward's two m64n128k16 forms, the dense conv's m64nNk16 with
-// A from registers for N = 96, 128, 256), warpgroup register reallocation
-// and named barriers. Users: the attention forward (fused_attention.cu) and
-// the dense conv (dense_conv.cu); the flash backward is to be rebuilt on
-// the same helpers.
+// attention forward's two m64n128k16 forms, the flash backward's m64n64k16
+// with both operands in shared memory, the dense conv's m64nNk16 with A
+// from registers for N = 96, 128, 256), warpgroup register reallocation,
+// named barriers and a one-instruction exp2. Users: the attention forward
+// (fused_attention.cu), the flash backward (flash_bwd.cu) and the dense
+// conv (dense_conv.cu).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums only: nothing links libcuda
@@ -14,7 +15,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma.cuh"
+#include "cp_async.cuh"
 
 namespace ladcast {
 namespace hopper {
@@ -129,6 +130,16 @@ __device__ __forceinline__ void named_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
 
+// 2^x on the MUFU unit in one instruction, results below 2^-126 flushed to
+// zero (exp2f keeps them at the cost of extra instructions): the kernels
+// exponentiate probabilities, whose row's largest is at least 1/Sk, so one
+// below 2^-126 adds nothing.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // ---------------------------------------------------------------- wgmma ---
 
 // Shared-memory matrix descriptor of a tile in the 128-byte-swizzled layout
@@ -208,6 +219,28 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float d[64], uint64_t a_desc
           "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a_desc), "l"(b_desc), "r"(scale_d));
+}
+
+// D (64 x 64 fp32) = A.B (+ D when scale_d != 0): A 64 x 16 and B 64 x 16
+// bf16, both K-major in shared memory; the fragment layout of
+// wgmma_m64n128k16_ss with n-blocks j < 8.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float d[32], uint64_t a_desc,
+                                                   uint64_t b_desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(a_desc), "l"(b_desc), "r"(scale_d));
 }
 

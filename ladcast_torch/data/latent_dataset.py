@@ -105,8 +105,8 @@ def batch_iterator(
     """Yield one epoch of full (initial_profile, clean, year_progress)
     numpy batches, year_progress (B, num_push_forward_steps) float32: the
     year progress of t0 + 6 h * s for each push-forward chunk s. Two
-    batches are read ahead on a thread, which stops when the generator is
-    closed; an error there is raised here."""
+    batches are read ahead on a thread, which has stopped when closing the
+    generator returns; an error there is raised here."""
     q: queue_mod.Queue = queue_mod.Queue(maxsize=2)
     stop = threading.Event()
 
@@ -145,7 +145,8 @@ def batch_iterator(
             return
         put(None)
 
-    threading.Thread(target=produce, daemon=True).start()
+    reader = threading.Thread(target=produce, daemon=True)
+    reader.start()
     try:
         while True:
             item = q.get()
@@ -156,3 +157,4 @@ def batch_iterator(
             yield item
     finally:
         stop.set()
+        reader.join()  # closed means stopped: no reader outlives its iterator

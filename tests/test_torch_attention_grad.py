@@ -12,6 +12,8 @@ L2 (1e-5) beside the elementwise check.
 """
 
 import functools
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -92,7 +94,19 @@ def test_function_grads_match_custom_vjp(mode, jax_mode):
     """The gradients of all nine inputs of the port's autograd Function
     against the VJP of JAX's ``fused_norm_rope_attention`` with the same
     backward mode (the Pallas kernels in interpret mode)."""
-    B, Sq, Sk, H = 1, 90, 70, 2
+    _function_grads_match(mode, jax_mode, 1, 90, 70, 2)
+
+
+@pytest.mark.parametrize("mode,jax_mode", [("kernel", "pallas"),
+                                           ("composite", "xla")])
+def test_function_grads_match_custom_vjp_at_16_heads(mode, jax_mode):
+    """The same at the 1.6B's 16 heads (the only shipped config with other
+    than 12), whose DiT parity test runs at a head size the fused path
+    does not take."""
+    _function_grads_match(mode, jax_mode, 1, 40, 30, 16)
+
+
+def _function_grads_match(mode, jax_mode, B, Sq, Sk, H):
     args = _segment_inputs(B, Sq, Sk, H, 128, 13)
     ct = np.random.RandomState(14).randn(B, Sq, H, 128).astype(np.float32)
     j_fa.BWD_MODE = jax_mode
@@ -183,42 +197,80 @@ def test_cuda_entries_refuse_grad_and_function_keeps_it():
 
 # ------------------------------------------- chip_smoke's bf16 check ---
 
-def _bwd_emulation(qn, kn, v, g, lse, delta, scale, fault=None, tile=64):
-    """The CUDA kernels' tile loops in fp32 with dS and P cast to bf16
-    before their products, with an optional fault: padded rows of the last
-    tile read stale rows (the stage's data of two tiles before) and are
-    not masked, or a tile is dropped."""
+def _kernel_constants():
+    """The tile constants of the flash backward's CUDA source: each
+    ``constexpr int NAME = [N *] VALUE;`` evaluated over those before it."""
+    src = (Path(__file__).resolve().parent.parent / "ladcast_torch" / "csrc"
+           / "flash_bwd.cu").read_text()
+    env = {}
+    for name, mul, val in re.findall(r"constexpr int (\w+) = (?:(\d+) \* )?(\w+);", src):
+        if val.isdigit() or val in env:
+            env[name] = int(mul or 1) * (int(val) if val.isdigit() else env[val])
+    return env
+
+
+def _bwd_emulation(qn, kn, v, g, lse, delta, scale, fault=None):
+    """The CUDA kernels' loops in fp32, dS and P cast to bf16 before their
+    products: each consumer of a dq block (kDqRows query rows, 64 a
+    consumer) walks the key tiles of kDqKeys keys, each consumer of a dk/dv
+    block (kDkvKeys keys) the query tiles of kDkvRows rows with their lse
+    and delta rows. Walked tiles come through a ring of kStages slots as
+    TMA fills them: rows past S are zero, keys >= Sk and query rows >= Sq
+    masked. Faults: the mask left off while the padded rows of the last
+    key tile (``unmasked_key_tail``) or query tile
+    (``unmasked_query_rows``) hold what their slot held before, a key tile
+    dropped (``dropped_tile``), or a consumer that reads its slot without
+    waiting on its "full" barrier from the tenth tile on, and so reads what
+    the slot held kStages tiles before (``stale_ring_slot``)."""
+    c = _kernel_constants()
+    rows, stages = c["kRows"], c["kStages"]
+    bq, tk, bk, tq = c["kDqRows"], c["kDqKeys"], c["kDkvKeys"], c["kDkvRows"]
     B, Sq, H, D = qn.shape
     Sk = kn.shape[1]
     qf, kf, vf, gf = (t.float().transpose(1, 2) for t in (qn, kn, v, g))
-    L, Dl = lse[..., None], delta[..., None]
+    stats = torch.stack([lse, delta], -1)  # (B, H, Sq, 2)
 
-    def rows(x, lo, S, stale):
-        t = x[:, :, lo:lo + tile]
-        pad = tile - t.shape[2]
-        if pad and stale:
-            t = torch.cat([t, x[:, :, lo - 2 * tile + t.shape[2]:lo - tile]], 2)
-        return t
+    def slot(x, t, tile, unmasked):
+        """Walked tile t of x (rows on dim 2) as the ring holds it."""
+        if fault == "stale_ring_slot" and t >= 9:
+            t -= stages
+        lo = t * tile
+        part = x[:, :, lo:lo + tile]
+        pad = tile - part.shape[2]
+        if pad and unmasked:
+            return torch.cat([part, x[:, :, lo - stages * tile + tile - pad:
+                                      lo - stages * tile + tile]], 2)
+        return torch.cat([part, part.new_zeros(*part.shape[:2], pad, *part.shape[3:])], 2)
 
     dq = torch.zeros_like(qf)
-    for i, lo in enumerate(range(0, Sk, tile)):
-        if fault == "dropped_tile" and i == 17:
-            continue
-        stale = fault == "unmasked_key_tail"
-        kt, vt = rows(kf, lo, Sk, stale), rows(vf, lo, Sk, stale)
-        p = torch.exp(qf @ kt.transpose(-1, -2) * scale - L)
-        ds = (p * (gf @ vt.transpose(-1, -2) - Dl)).bfloat16().float()
-        dq += ds @ kt
+    unmasked = fault == "unmasked_key_tail"
+    for q0 in range(0, Sq, bq):
+        for c0 in range(q0, min(q0 + bq, Sq), rows):  # a consumer's rows
+            q, gg = qf[:, :, c0:c0 + rows], gf[:, :, c0:c0 + rows]
+            L, Dl = lse[..., c0:c0 + rows, None], delta[..., c0:c0 + rows, None]
+            for t in range(-(-Sk // tk)):
+                if fault == "dropped_tile" and t == 17:
+                    continue
+                kt, vt = slot(kf, t, tk, unmasked), slot(vf, t, tk, unmasked)
+                p = torch.exp(q @ kt.transpose(-1, -2) * scale - L)
+                if not unmasked:
+                    p[..., max(Sk - t * tk, 0):] = 0
+                ds = (p * (gg @ vt.transpose(-1, -2) - Dl)).bfloat16().float()
+                dq[:, :, c0:c0 + rows] += ds @ kt
     dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
-    for i, lo in enumerate(range(0, Sq, tile)):
-        stale = fault == "unmasked_query_rows"
-        qt, gt = rows(qf, lo, Sq, stale), rows(gf, lo, Sq, stale)
-        lt = rows(lse[..., None], lo, Sq, stale)[..., 0][..., None, :]
-        dt = rows(delta[..., None], lo, Sq, stale)[..., 0][..., None, :]
-        pt = torch.exp(kf @ qt.transpose(-1, -2) * scale - lt)
-        dst = pt * (vf @ gt.transpose(-1, -2) - dt)
-        dv += pt.bfloat16().float() @ gt
-        dk += dst.bfloat16().float() @ qt
+    unmasked = fault == "unmasked_query_rows"
+    for k0 in range(0, Sk, bk):
+        for c0 in range(k0, min(k0 + bk, Sk), rows):  # a consumer's keys
+            k, vv = kf[:, :, c0:c0 + rows], vf[:, :, c0:c0 + rows]
+            for t in range(-(-Sq // tq)):
+                qt, gt = slot(qf, t, tq, unmasked), slot(gf, t, tq, unmasked)
+                st = slot(stats, t, tq, unmasked)
+                pt = torch.exp(k @ qt.transpose(-1, -2) * scale - st[..., None, :, 0])
+                if not unmasked:
+                    pt[..., max(Sq - t * tq, 0):] = 0
+                dst = pt * (vv @ gt.transpose(-1, -2) - st[..., None, :, 1])
+                dv[:, :, c0:c0 + rows] += pt.bfloat16().float() @ gt
+                dk[:, :, c0:c0 + rows] += dst.bfloat16().float() @ qt
     return tuple((x * s).transpose(1, 2).bfloat16()
                  for x, s in ((dq, scale), (dk, scale), (dv, 1.0)))
 
@@ -239,17 +291,21 @@ def _bwd_case(S=2250, H=1, D=128):
 
 
 @pytest.mark.parametrize("fault", [None, "unmasked_key_tail",
-                                   "unmasked_query_rows", "dropped_tile"])
+                                   "unmasked_query_rows", "dropped_tile",
+                                   "stale_ring_slot"])
 def test_smoke_flash_bwd_bf16_check_catches_faults(fault):
     """chip_smoke.py's bf16 check of K3 at the training S=2250 (a ragged
     last tile of 10 rows): it passes a faithful emulation of the kernels'
     tile loops and fails each injected fault in the output it corrupts."""
     import chip_smoke
 
+    c = _kernel_constants()
+    assert [c[n] for n in ("kRows", "kDqRows", "kDqKeys", "kDkvKeys", "kDkvRows",
+                           "kStages")] == [64, 128, 64, 128, 64, 2]
     args, refs = _bwd_case()
     outs = _bwd_emulation(*args, 128 ** -0.5, fault)
     ok = [chip_smoke.compare(o, r, chip_smoke.kernel_tolerance(
         "flash_bwd", "bfloat16", r))["ok"] for o, r in zip(outs, refs)]
     broken = {None: [], "unmasked_key_tail": [0], "unmasked_query_rows": [1, 2],
-              "dropped_tile": [0]}[fault]
+              "dropped_tile": [0], "stale_ring_slot": [0, 1, 2]}[fault]
     assert ok == [i not in broken for i in range(3)], ok

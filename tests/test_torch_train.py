@@ -2,8 +2,10 @@
 the CPU: the loss and every parameter's gradient of ``loss_given_noise``
 (injected sigma indices and noise, the JAX gradient tree mapped with the
 port's ``state_dict_from_flax``), the sigma sampler, EMA, the LR schedules
-and three optimizer steps against optax; then remat, checkpoints, the CLI
-and its resume, and chip_smoke.py's copy of the 375M training config.
+and three optimizer steps against optax; the same for the 1.6B cut in
+depth and head size (16 heads kept); then remat, checkpoints, the CLI, its
+resume and its reading of the yaml's parallel: section, and chip_smoke.py's
+copies of the 375M and 1.6B training configs.
 
 Tolerances: fp32 through the tiny DiT and its backward, the sums taken in
 another order by XLA and by torch. The loss agrees to 1e-5 relative, the
@@ -116,6 +118,18 @@ def _jax_loss_and_grads(case):
     return float(loss), state_dict_from_flax(jax.tree.map(np.asarray, grads), "dit")
 
 
+def _assert_loss_and_grads_match(loss, got, j_loss, want):
+    """The loss to 1e-5 relative, the concatenated gradient to 1e-5
+    relative L2 and each parameter's to 1e-4 (the module docstring)."""
+    assert abs(loss - j_loss) <= 1e-5 * abs(j_loss)
+    assert sorted(got) == sorted(want)
+    cat = lambda d: torch.cat([d[k].flatten() for k in want])  # noqa: E731
+    assert (cat(got) - cat(want)).norm() <= 1e-5 * cat(want).norm()
+    for name, g in want.items():
+        err = (got[name] - g).norm() / g.norm().clamp_min(1e-30)
+        assert err <= 1e-4, (name, float(err))
+
+
 @pytest.mark.parametrize("case,bwd_mode", [("pf1", "composite"), ("pf1", "kernel"),
                                            ("pf2_lat_weighted", "default"),
                                            ("snr_gamma", "default")])
@@ -135,19 +149,75 @@ def test_loss_given_noise_matches_jax(case, bwd_mode):
         loss, got = _torch_loss_and_grads(tcfg_kw, params, batch, indices, noise)
     finally:
         t_fa.BWD_MODE = prev
-    assert abs(loss - j_loss) <= 1e-5 * abs(j_loss)
-    assert sorted(got) == sorted(want)
-    got = {k: got[k] for k in want}
-    cat = lambda d: torch.cat([t.flatten() for t in d.values()])  # noqa: E731
-    assert (cat(got) - cat(want)).norm() <= 1e-5 * cat(want).norm()
-    for name, g in want.items():
-        err = (got[name] - g).norm() / g.norm().clamp_min(1e-30)
-        assert err <= 1e-4, (name, float(err))
+    _assert_loss_and_grads_match(loss, got, j_loss, want)
     # the attention's projections and qk-norm weights get their gradients
     attn = "transformer_blocks.0.attn."
     for leaf in ("to_q.weight", "add_k_proj.weight", "norm_q.weight",
                  "norm_added_k.weight"):
         assert got[attn + leaf].abs().max() > 0, leaf
+
+
+# The 1.6B (config.ladcast_1p6b_config: 16 heads, 5 + 10 + 3 layers) cut
+# to one layer of each kind and a head size of 32, the rope axes scaled to
+# it: the only shipped config with other than 12 heads. At D=32 the DiT's
+# attention is the composite on both sides (the fused path takes D a
+# multiple of 128); the fused Function and K3 are held at 16 heads and
+# D=128 in test_torch_attention_grad.py.
+CUT_1P6B = dict(num_layers=1, num_single_layers=1, num_refiner_layers=1,
+                attention_head_dim=32, rope_axes_dim=(8, 12, 12),
+                conditioning_tensor_rope_axes_dim=(8, 12, 12))
+SIXTEEN_HEADS = dict(num_attention_heads=16, **CUT_1P6B)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_1p6b():
+    """Seeded params of the cut 1.6B, its forward on test_torch_dit's
+    inputs, and its loss and gradients on _batch's (84 channels)."""
+    from tests.test_torch_dit import _inputs
+
+    cfg = j_config.ladcast_1p6b_config(**CUT_1P6B)
+    model = JaxDiT(cfg)
+    batch, indices, noise = _batch(C=84)
+    lat, cond, yp = batch
+    params = jax.tree.map(np.asarray, jax.jit(model.init)(
+        jax.random.PRNGKey(5), lat, np.zeros(len(lat), np.float32), cond, yp[:, 0]))
+    inputs = _inputs(C=84, seed=6)
+    out = np.asarray(jax.jit(model.apply)(params, *map(jnp.asarray, inputs)))
+    _, j_step = j_make_step(cfg, j_config.EDMSchedulerConfig(),
+                            j_config.NoiseSamplerConfig(),
+                            JaxARConfig(compute_dtype="float32"),
+                            j_optim.make_optimizer())
+    (loss, _), grads = jax.jit(jax.value_and_grad(
+        j_step.loss_given_noise, has_aux=True))(
+            params, tuple(map(jnp.asarray, batch)), jnp.asarray(indices),
+            jnp.asarray(noise))
+    return (params, inputs, out, float(loss),
+            state_dict_from_flax(jax.tree.map(np.asarray, grads), "dit"))
+
+
+@pytest.mark.parametrize("bwd_mode", ["kernel", "composite"])
+def test_sixteen_head_1p6b_matches_jax(bwd_mode):
+    """The cut 1.6B's forward (test_torch_dit.py's 1e-4) and its loss and
+    gradients under each backward mode (this file's tolerances) against
+    the JAX model with the same weights."""
+    assert (t_config.LaDCastDiTConfig(**SIXTEEN_HEADS)
+            == t_config.ladcast_1p6b_config(**CUT_1P6B))
+    params, inputs, want_out, j_loss, want = _jax_1p6b()
+    model = TorchDiT(t_config.LaDCastDiTConfig(**SIXTEEN_HEADS))
+    model.load_state_dict(state_dict_from_flax(params, "dit"), strict=True)
+    with torch.no_grad():
+        out = model.eval()(*map(torch.from_numpy, inputs)).numpy()
+    assert out.shape == want_out.shape
+    assert np.linalg.norm(out - want_out) <= 1e-4 * np.linalg.norm(want_out)
+
+    batch, indices, noise = _batch(C=84)
+    prev, t_fa.BWD_MODE = t_fa.BWD_MODE, bwd_mode
+    try:
+        loss, got = _torch_loss_and_grads({}, params, batch, indices, noise,
+                                          cfg_kw=SIXTEEN_HEADS)
+    finally:
+        t_fa.BWD_MODE = prev
+    _assert_loss_and_grads_match(loss, got, j_loss, want)
 
 
 def test_indices_from_normals_matches_jax():
@@ -320,6 +390,47 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
                     "cpu", "--output_dir", str(tmp_path / "x")])
 
 
+def _1p6b_yaml():
+    with open(os.path.join(ROOT, "configs", "ladcast_1p6b.yaml")) as f:
+        return yaml.safe_load(f)
+
+
+@pytest.mark.parametrize("section", [
+    "shipped", {"mesh": {"data": 1, "model": 2}}, {"mesh": "data=-1,model=8"},
+    {"mesh": {"data": -1}, "zero": True}, {"mesh": {"data": 2}},
+    {"mesh": {"data": -1, "seq": 2}}],
+    ids=["ladcast_1p6b_yaml", "model_axis", "model_axis_string", "zero",
+         "data_of_two", "other_axis"])
+def test_cli_refuses_a_parallel_section_it_cannot_honour(tmp_path, section):
+    """configs/ladcast_1p6b.yaml as shipped asks for a TP + ZeRO mesh: run
+    raises with the --mesh / --zero flags' item instead of training it as
+    plain data parallelism, and so does any section that needs more than
+    one device."""
+    cfg = (_1p6b_yaml() if section == "shipped"
+           else {**TINY_AR_CFG, "parallel": section})
+    args = t_cli.build_parser().parse_args(
+        ["--latents", str(tmp_path / "none.npz"), "--device", "cpu",
+         "--output_dir", str(tmp_path / "x")])
+    with pytest.raises(NotImplementedError, match="M12"):
+        t_cli.run(cfg, args)
+    assert not (tmp_path / "x").exists()
+
+
+@pytest.mark.parametrize("section", [
+    {"mesh": {"data": -1}}, {"mesh": "data=1", "zero": False},
+    {"mesh": {"data": 1, "model": 1}}, {}],
+    ids=["data_fill", "data_one_string", "model_of_one", "empty"])
+def test_cli_trains_with_a_one_device_parallel_section(tmp_path, section):
+    """A section that asks only for the data axis on this one device (or
+    nothing) trains as without it."""
+    _, lat = _cli_fixtures(tmp_path)
+    args = t_cli.build_parser().parse_args(
+        ["--latents", lat, "--device", "cpu", "--num_steps", "1",
+         "--output_dir", str(tmp_path / "run")])
+    res = t_cli.run({**TINY_AR_CFG, "parallel": section}, args)
+    assert res["state"].step == 1 and np.isfinite(res["history"][0]["loss"])
+
+
 def test_checkpoint_params_round_trip(tmp_path):
     sd = {"w": torch.randn(3, 4), "b": torch.arange(5.0)}
     path = str(tmp_path / "w" / "params.pt")
@@ -336,6 +447,12 @@ def test_chip_smoke_train_config_is_the_yaml():
 
     with open(os.path.join(ROOT, "configs", "ladcast_375m.yaml")) as f:
         assert chip_smoke.LADCAST_375M_YAML == yaml.safe_load(f)
+
+
+def test_chip_smoke_1p6b_config_is_the_yaml():
+    import chip_smoke
+
+    assert chip_smoke.LADCAST_1P6B_YAML == _1p6b_yaml()
 
 
 def test_config_copies_match_jax_defaults():
