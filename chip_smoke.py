@@ -13,15 +13,17 @@ field files out).
 
   1. environment: the card (nvidia-smi), torch and CUDA versions, and the
      build of the CUDA kernels from ``ladcast_torch/csrc`` (one nvcc per
-     source, in parallel); for the attention's, the flash backward's and
-     the two convs' libraries, each kernel's (each template instance's)
-     registers, shared memory and spills (``-Xptxas -v``) and its count of
-     wgmma (HGMMA), TMA-load (UTMALDG) and mma.sync (HMMA) instructions
-     (``cuobjdump -sass``): the bf16 K1 and the bf16 K3 pair
-     (``bwd_dq_bf16_wgmma_kernel``, ``bwd_dkv_bf16_wgmma_kernel``) must have
-     the first two, not the third, and every instance of the bf16 K4 wgmma
-     and no mma.sync; all of them spill nothing and draw no note from ptxas
-     (a serialised wgmma);
+     source, in parallel); for the attention's, the flash backward's, the
+     two convs' and the plain attention's libraries, each kernel's (each
+     template instance's) registers, shared memory and spills (``-Xptxas
+     -v``) and its count of wgmma (HGMMA), TMA-load (UTMALDG) and mma.sync
+     (HMMA) instructions (``cuobjdump -sass``): the bf16 K1, the bf16 K3
+     pair (``bwd_dq_bf16_wgmma_kernel``, ``bwd_dkv_bf16_wgmma_kernel``) and
+     all six instances of K6 (``fa_plain_wgmma_kernel``, three head sizes,
+     one or three bf16 planes) must have the first two, not the third, and
+     every instance of the bf16 K4 wgmma and no mma.sync; all of them spill
+     nothing and draw no note from ptxas (a serialised wgmma); K6's split
+     pass is reported only;
   2. kernels: each kernel against its plain PyTorch version on the card, in
      bf16 and fp32, at the main path's shapes (B=20, S=2250 dual- and
      single-stream tables, S=450 refiner tables) and a ragged small case,
@@ -30,9 +32,15 @@ field files out).
      ``scaled_dot_product_attention`` on the pre-normed inputs (a
      yardstick only; the port never calls it), its rate and the bound's
      share of its time;
-     the plain flash attention (K6) follows at (2, 2250 / 450, 12, 128) and
-     (1, 130, 3, 64), fp32 and bf16 inputs, with SDPA as its yardstick,
-     and is driven once through ``ops.attention.dot_product_attention``;
+     the plain flash attention (K6) follows at ``K6_CASES``, bf16 and fp32
+     inputs: timed at (2, 2250 / 450, 12, 128), with its bound in
+     tensor-core passes (``flash_plain_bound``), SDPA on fp32 copies (the
+     same function, ``library_ms``, and its relative L2 to the plain
+     version) and, for bf16 inputs, SDPA on the inputs, which rounds P to
+     bf16 (``library_bf16p_ms``); checked only at a ragged (1, 130, 3, 64),
+     Sq != Sk (75 over 150 keys), D = 256 and D = 36 (rows TMA cannot load);
+     all against K6's own limits (``K6_REL_L2``); then driven once through
+     ``ops.attention.dot_product_attention``;
   2a. conv kernels: the dense (K4) and depthwise (K5) convolutions against
      their plain versions, zero-padded and circular, at every distinct
      shape of the shipped DCAE and at small ragged shapes: in bf16 at the
@@ -128,12 +136,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # Dense peaks (NVIDIA data sheets): bf16 tensor-core and fp32 CUDA-core
-# FLOP/s, and HBM bytes/s. Matched on the card's name; the H100 SXM is the
-# default.
-PEAKS = [("H100 PCIe", 756e12, 51e12, 2.0e12),
-         ("H100 NVL", 835e12, 60e12, 3.9e12),
-         ("H200", 989e12, 67e12, 4.8e12),
-         ("", 989e12, 67e12, 3.35e12)]
+# FLOP/s, HBM bytes/s, and TF32 tensor-core FLOP/s (half the bf16 rate).
+# Matched on the card's name; the H100 SXM is the default.
+PEAKS = [("H100 PCIe", 756e12, 51e12, 2.0e12, 378e12),
+         ("H100 NVL", 835e12, 60e12, 3.9e12, 417.5e12),
+         ("H200", 989e12, 67e12, 4.8e12, 494.5e12),
+         ("", 989e12, 67e12, 3.35e12, 494.5e12)]
 
 # A kernel passes when |kernel - plain| <= atol + rtol * |plain| for every
 # element and the relative L2 error is at most rel_l2. In bf16, fp32 results
@@ -159,6 +167,12 @@ CONV_BF16_ULPS = 2
 # up to |scale * q| * 2**-8 * |kn| (about 1e-3 for these inputs).
 LSE_ATOL = {"bfloat16": 1e-3, "float32": 1e-4}
 REL_L2 = {"bfloat16": 5e-3, "float32": 1e-4}
+# K6 promises fp32 logits, P and products whatever the input dtype, so its
+# relative L2 limits are its own. In the emulation of its loop at Sk = 2250
+# (tests/test_torch_flash_plain.py) a P rounded once to bf16, as SDPA and
+# the composite round it, reads 2.4e-3 (bf16) and 1.5e-3 (fp32), fp32
+# products from two bf16 terms 6.2e-6, the faithful loop 1.3e-5 and 5.9e-7.
+K6_REL_L2 = {"bfloat16": 5e-4, "float32": 2e-6}
 MODEL_TOL = {"bfloat16": 2e-2, "float32": 1e-3}  # relative L2, 375M forward
 GRAD_TOL = {"bfloat16": 2e-2, "float32": 1e-3}  # relative L2, 375M gradients
 DCAE_TOL = {"bfloat16": 2e-2, "float32": 1e-3}  # relative L2, kernel vs library convs
@@ -336,15 +350,16 @@ def kernel_tolerance(kernel, dtype_name, ref):
     if kernel == "fused_attention_lse":  # fp32 logsumexp rows, |lse| ~ 8
         return {"atol": LSE_ATOL[dtype_name], "rtol": 0.0,
                 "rel_l2": REL_L2["float32"]}
+    rel_l2 = (K6_REL_L2 if kernel == "flash_attention" else REL_L2)[dtype_name]
     if dtype_name == "float32":
-        return {"atol": 1e-4, "rtol": 0.0, "rel_l2": REL_L2[dtype_name]}
+        return {"atol": 1e-4, "rtol": 0.0, "rel_l2": rel_l2}
     if kernel == "norm_rope":
         atol = 2e-2
     elif kernel in ("dense_conv", "depthwise_conv"):
         atol = CONV_BF16_ULPS * bf16_ulp(ref.float().square().mean().sqrt().item())
     else:
         atol = ATTN_BF16_ULPS * bf16_ulp(ref.float().abs().max().item())
-    return {"atol": atol, "rtol": 2**-7, "rel_l2": REL_L2[dtype_name]}
+    return {"atol": atol, "rtol": 2**-7, "rel_l2": rel_l2}
 
 
 def compare(out, ref, tol):
@@ -395,7 +410,7 @@ def kernel_phase(peaks):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    peak_bf16, peak_f32, bw = peaks
+    peak_bf16, peak_f32, bw, _ = peaks
     cfg = ladcast_375m_config()
     H, D = cfg.num_attention_heads, cfg.attention_head_dim
     with torch.device("meta"):
@@ -531,7 +546,7 @@ def conv_kernel_phase(peaks):
     from ladcast_torch.ops import depthwise_conv as dw
 
     dev = torch.device("cuda")
-    peak_bf16, peak_f32, bw = peaks
+    peak_bf16, peak_f32, bw, _ = peaks
     g = torch.Generator(device=dev).manual_seed(5)
 
     def rand(shape, scale, dtype):
@@ -636,50 +651,96 @@ def conv_kernel_phase(peaks):
     return results
 
 
+# K6's cases: name, (B, Sq, Sk, H, D), timed. The untimed ones check a
+# shape class each: ragged tails, Sq != Sk (both ragged), the widest head
+# (both consumer warpgroups on one 64-row tile, half of O's columns each),
+# and a head size whose rows TMA cannot load as they are (bf16 D = 36: the
+# split pass pads it to 64 columns first).
+K6_CASES = (("s2250", (2, 2250, 2250, 12, 128), True),
+            ("s450", (2, 450, 450, 12, 128), True),
+            ("ragged_130", (1, 130, 130, 3, 64), False),
+            ("sq75_sk150", (1, 75, 150, 3, 64), False),
+            ("d256", (1, 130, 130, 2, 256), False),
+            ("d36", (1, 130, 130, 1, 36), False))
+
+
+def flash_plain_bound(B, Sq, Sk, H, D, dtype_name, peaks):
+    """K6's least time on the card for its contract's work: passes of 2 B H
+    Sq Sk D flop on the tensor cores at the peak of the pass's operand type
+    (bf16 inputs: 4 bf16 passes, Q.K^T and one P.V per bf16 term of P; fp32
+    inputs: 6 TF32 passes, as many flop as 12 bf16 ones), against the bytes
+    of q, k, v and o. {"bound_passes", "flops", "bound_ms", "bound_by"}."""
+    peak_bf16, _, bw, peak_tf32 = peaks
+    bf16 = dtype_name == "bfloat16"
+    passes = 4 if bf16 else 6
+    flops = passes * 2 * B * H * Sq * Sk * D
+    nbytes = 2 * (Sq + Sk) * B * H * D * (2 if bf16 else 4)
+    return {"bound_passes": passes, "flops": flops,
+            **bound(flops, nbytes, peak_bf16 if bf16 else peak_tf32, bw)}
+
+
 def flash_plain_phase(peaks):
-    """K6 against its plain version, with SDPA as the yardstick; then once
-    through ``dot_product_attention``, the entry a caller uses."""
+    """K6 against its plain version at every case of ``K6_CASES``, bf16 and
+    fp32. The timed cases also time two yardsticks: SDPA on fp32 copies of
+    the inputs (``library_ms``, the PyTorch call that computes K6's function;
+    its relative L2 to the plain version beside it) and, for bf16 inputs,
+    SDPA on the inputs as they are (``library_bf16p_ms``, a cheaper function:
+    it rounds P to bf16). Then K6 once through ``dot_product_attention``,
+    the entry a caller uses."""
     import torch
     import torch.nn.functional as F
 
     from ladcast_torch.ops import attention, flash_attention as fa
 
     dev = torch.device("cuda")
-    _, peak_f32, bw = peaks
     g = torch.Generator(device=dev).manual_seed(6)
     recs = []
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
-        for name, (B, S, H, D), timed in (("s2250", (2, 2250, 12, 128), True),
-                                          ("s450", (2, 450, 12, 128), True),
-                                          ("ragged_130", (1, 130, 3, 64), False)):
-            q, k, v = (torch.randn(B, S, H, D, generator=g, device=dev).to(dtype)
-                       for _ in range(3))
+        for name, (B, Sq, Sk, H, D), timed in K6_CASES:
+            q = torch.randn(B, Sq, H, D, generator=g, device=dev).to(dtype)
+            k, v = (torch.randn(B, Sk, H, D, generator=g, device=dev).to(dtype)
+                    for _ in range(2))
             out = fa.flash_attention_forward(q, k, v)
             torch.cuda.synchronize()
             ref = fa.flash_attention_plain(q, k, v)
+            bnd = flash_plain_bound(B, Sq, Sk, H, D, dname, peaks)
             rec = {"phase": "kernel", "kernel": "flash_attention", "case": name,
-                   "dtype": dname, "B": B, "S": S, "H": H, "D": D,
+                   "dtype": dname, "B": B, "Sq": Sq, "Sk": Sk, "H": H, "D": D,
+                   "planes": fa.split_planes(dtype, D),
                    **compare(out, ref, kernel_tolerance("flash_attention", dname, ref)),
                    "finite": bool(torch.isfinite(out).all()),
-                   # every product is fp32, whatever the input dtype
-                   **bound(4 * B * H * S * S * D, 4 * q.numel() * q.element_size(),
-                           peak_f32, bw)}
+                   **{key: bnd[key] for key in ("bound_passes", "bound_ms", "bound_by")}}
             if timed:
                 rec["ms"] = time_ms(lambda: fa.flash_attention_forward(q, k, v),
                                     rounds=10, inner=2)
                 rec["plain_ms"] = time_ms(lambda: fa.flash_attention_plain(q, k, v),
                                           rounds=10, inner=1)
-                qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+                qh, kh, vh = (t.float().transpose(1, 2).contiguous() for t in (q, k, v))
+                lib = F.scaled_dot_product_attention(qh, kh, vh).transpose(1, 2)
                 rec["library_ms"] = time_ms(
                     lambda: F.scaled_dot_product_attention(qh, kh, vh),
                     rounds=10, inner=1)
-                del qh, kh, vh
+                rec["library_op"] = "F.scaled_dot_product_attention on fp32 copies"
+                rec["library_rel_l2"] = compare(lib.to(dtype), ref,
+                                                kernel_tolerance("flash_attention",
+                                                                 dname, ref))["rel_l2"]
+                rec["library_bf16p_ms"] = None
+                if dtype == torch.bfloat16:
+                    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+                    rec["library_bf16p_ms"] = time_ms(
+                        lambda: F.scaled_dot_product_attention(qh, kh, vh),
+                        rounds=10, inner=1)
+                rec.update(tflops=bnd["flops"] / rec["ms"] / 1e9,
+                           bound_share=rec["bound_ms"] / rec["ms"])
+                del qh, kh, vh, lib
             emit(rec)
             recs.append(rec)
             if not (rec["ok"] and rec["finite"]):
                 raise AssertionError(f"flash_attention {rec}")
-    # its path: no model calls it, a caller reaches it through the op
+    # its path: no model calls it, a caller reaches it through the op; the
+    # composite it is compared with rounds P to bf16, so the check is the
+    # general attention one
     fa.flash_attention_forward.launches = 0
     q, k, v = (torch.randn(2, 2250, 12, 128, generator=g, device=dev).bfloat16()
                for _ in range(3))
@@ -687,7 +748,8 @@ def flash_plain_phase(peaks):
     launches = fa.flash_attention_forward.launches
     ref = attention.dot_product_attention(q, k, v, impl="plain")
     rec = {"phase": "op_path", "op": "dot_product_attention", "launches": launches,
-           **compare(out, ref, kernel_tolerance("flash_attention", "bfloat16", ref))}
+           **compare(out, ref, kernel_tolerance("dot_product_attention", "bfloat16",
+                                                ref))}
     emit(rec)
     if launches != 1 or not rec["ok"]:
         raise AssertionError(f"dot_product_attention {rec}")
@@ -871,7 +933,7 @@ def backward_kernel_phase(peaks):
     from ladcast_torch.ops import flash_attention as fa
 
     dev = torch.device("cuda")
-    peak_bf16, peak_f32, bw = peaks
+    peak_bf16, peak_f32, bw, _ = peaks
     cfg = ladcast_375m_config()
     H, D = cfg.num_attention_heads, cfg.attention_head_dim
     H_1P6B = ladcast_1p6b_config().num_attention_heads
@@ -1584,7 +1646,7 @@ CATEGORIES = [("fused_attention", ("fa_bf16_wgmma_kernel", "fa_f32_kernel")),
               ("flash_bwd", ("bwd_dq_bf16_wgmma_kernel", "bwd_dkv_bf16_wgmma_kernel",
                              "bwd_dq_f32_kernel", "bwd_dkv_f32_kernel")),
               ("norm_rope", ("norm_rope_kernel",)),
-              ("flash_plain (K6)", ("fa_plain_kernel",)),
+              ("flash_plain (K6)", ("fa_plain_wgmma_kernel", "fa_plain_split_kernel")),
               ("dense_conv (K4)", ("conv_bf16_wgmma_kernel", "conv_f32_kernel")),
               ("depthwise_conv (K5)", ("dw_rows_kernel",)),
               ("foreach (AdamW, EMA, norms)", ("multi_tensor_apply",)),
@@ -1683,11 +1745,12 @@ def main():
           "python": sys.version.split()[0], "build_s": time.perf_counter() - t0,
           "libraries": sorted(p.name for p in libs.values()),
           "peaks": {"bf16_flops": peaks[0], "fp32_flops": peaks[1],
-                    "bytes_per_s": peaks[2]}})
+                    "bytes_per_s": peaks[2], "tf32_flops": peaks[3]}})
     # the kernels' registers, spills and SASS; the Hopper kernels must have
     # no mma.sync, no spills and no note of ptxas's (a serialised wgmma)
     reports = {}
-    for lib in ("fused_attention", "flash_bwd", "dense_conv", "depthwise_conv"):
+    for lib in ("fused_attention", "flash_bwd", "dense_conv", "depthwise_conv",
+                "flash_plain"):
         reports[lib] = kernel_report(lib)
         emit({"phase": "kernel_build", "library": lib, "kernels": reports[lib]})
     # K1 and K3 in bf16 must be the Hopper kernels: wgmma, TMA loads
@@ -1705,6 +1768,15 @@ def main():
     if not k4 or any(not v["sass"].get("HGMMA") or v["sass"].get("HMMA")
                      or not clean_build(v) for v in k4.values()):
         raise AssertionError(f"conv_bf16_wgmma_kernel as built: {k4}")
+    # K6 in every tensor-core instance (three head sizes, one or three
+    # planes): wgmma, TMA loads, no mma.sync, no spills, no note of ptxas's;
+    # the split pass is reported only
+    k6 = {k: v for k, v in reports["flash_plain"].items()
+          if k.startswith("fa_plain_wgmma_kernel")}
+    if len(k6) != 6 or any(not v["sass"].get("HGMMA") or not v["sass"].get("UTMALDG")
+                           or v["sass"].get("HMMA") or not clean_build(v)
+                           for v in k6.values()):
+        raise AssertionError(f"fa_plain_wgmma_kernel as built: {k6}")
 
     t0 = time.perf_counter()
     results = kernel_phase(peaks)
@@ -1767,8 +1839,9 @@ def main():
                 "ms": main["ms"], "plain_ms": main["plain_ms"],
                 "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
                 "library_ms": main["library_ms"], "case": main_case,
-                **{k: main[k] for k in ("library_op", "tflops", "bound_share")
-                   if k in main}}
+                **{k: main[k] for k in ("library_op", "tflops", "bound_share",
+                                        "bound_passes", "library_rel_l2",
+                                        "library_bf16p_ms") if k in main}}
 
     # launches: the bench path's for K1 and K2, the training path's (kernel
     # backward) for K1-lse and K3, the forecast path's (Heun with decode)

@@ -244,6 +244,60 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float d[32], uint64_t a_desc,
       : "l"(a_desc), "l"(b_desc), "r"(scale_d));
 }
 
+// D (64 x 32 fp32) = A.B (+ D when scale_d != 0): A 64 x 16 and B 32 x 16
+// bf16, both K-major in shared memory; the fragment layout of
+// wgmma_m64n128k16_ss with n-blocks j < 4.
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float d[16], uint64_t a_desc,
+                                                   uint64_t b_desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a_desc), "l"(b_desc), "r"(scale_d));
+}
+
+// D (64 x 16 fp32) = A.B (+ D when scale_d != 0): A 64 x 16 and B 16 x 16
+// bf16, both K-major in shared memory; the fragment layout of
+// wgmma_m64n128k16_ss with n-blocks j < 2.
+__device__ __forceinline__ void wgmma_m64n16k16_ss(float d[8], uint64_t a_desc,
+                                                   uint64_t b_desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a_desc), "l"(b_desc), "r"(scale_d));
+}
+
+// D (64 x 64 fp32) += A.B with A 64 x 16 bf16 from registers (the fragment
+// of wgmma_m64n128k16_rs_tnsp_b) and B 16 x 64 bf16 MN-major in shared
+// memory (read through the transpose bit).
+__device__ __forceinline__ void wgmma_m64n64k16_rs_tnsp_b(float d[32], const uint32_t a[4],
+                                                          uint64_t b_desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(scale_d));
+}
+
 // D (64 x 128 fp32) += A.B with A 64 x 16 bf16 from registers (the
 // mma.sync m16n8k16 A fragment of each warp's 16 rows: a[0] row r, columns
 // c, c+1; a[1] row r+8; a[2] row r, columns c+8, c+9; a[3] row r+8, with

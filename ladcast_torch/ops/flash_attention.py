@@ -16,10 +16,10 @@ version:
     plain version of both, :func:`flash_bwd_dq_plain` and
     :func:`flash_bwd_dkv_plain` of each alone.
   - :func:`flash_attention_forward` (``csrc/flash_plain.cu``, the TPU
-    ``_fa_plain_kernel``): plain fp32 flash attention without norm or
-    RoPE, any head size up to 256; :func:`flash_attention` is its
-    differentiable entry (backward: the VJP of
-    :func:`attention_composite`).
+    ``_fa_plain_kernel``): flash attention with fp32 products, without norm
+    or RoPE, any head size up to 256, on the tensor cores in bf16 terms
+    (:func:`split_planes`); :func:`flash_attention` is its differentiable
+    entry (backward: the VJP of :func:`attention_composite`).
 
 :func:`fused_norm_rope_attention` chains the forward kernels as
 ``_fused_impl`` does, inside :class:`FusedNormRopeAttention`, the
@@ -399,12 +399,28 @@ def flash_attention_plain(q, k, v):
     return (acc / p.sum(-1).permute(0, 2, 1)[..., None]).to(q.dtype)
 
 
+def padded_head(D: int) -> int:
+    """The head size K6 computes with: D padded to 64, 128 or 256."""
+    return 64 if D <= 64 else 128 if D <= 128 else 256
+
+
+def split_planes(dtype: torch.dtype, D: int) -> int:
+    """How many bf16 planes K6's split pass writes of each input before its
+    loop: 3 for fp32 inputs (the terms that carry fp32 on the tensor
+    cores), 1 for bf16 inputs whose rows TMA cannot load as they are (D no
+    multiple of 8: a copy padded to :func:`padded_head` columns), 0 for other
+    bf16 inputs, which the kernel reads in place."""
+    if dtype == torch.float32:
+        return 3
+    return 0 if D % 8 == 0 else 1
+
+
 def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor) -> torch.Tensor:
-    """Softmax attention of q (B, Sq, H, D) over k, v (B, Sk, H, D) in
-    fp32, D <= 256: the kernel of ``csrc/flash_plain.cu`` on CUDA tensors
-    (counted in ``launches``), the plain version on CPU tensors; the
-    result carries no gradient."""
+    """Softmax attention of q (B, Sq, H, D) over k, v (B, Sk, H, D) with
+    fp32 logits, softmax, P and products, D <= 256: the kernel of
+    ``csrc/flash_plain.cu`` on CUDA tensors (counted in ``launches``), the
+    plain version on CPU tensors; the result carries no gradient."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v)
     B, Sq, H, D = q.shape
@@ -420,12 +436,16 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
     refuse_grad("flash_attention_forward", (q, k, v), "flash_attention")
     out = torch.empty_like(q)
     if out.numel():
+        n, dp = split_planes(q.dtype, D), padded_head(D)
+        planes = [torch.empty(n * B, t.shape[1], H, dp, dtype=torch.bfloat16,
+                              device=q.device) for t in (q, k, v)] if n else []
+        ptrs = [t.data_ptr() for t in planes] or [None] * 3
         fn = _fn("flash_plain", "ladcast_flash_attention",
-                 [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                 [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         _launched("flash_attention", fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
-            Sk, H, D, 1.0 / (D ** 0.5), _DTYPE_CODES[q.dtype],
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *ptrs, B,
+            Sq, Sk, H, D, 1.0 / (D ** 0.5), _DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream))
         flash_attention_forward.launches += 1
     return out
