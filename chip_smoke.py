@@ -6,10 +6,12 @@
     python3 chip_smoke.py --records out/records.jsonl  # keep every record
 
 Phases, each printed as JSON lines; any failure raises, so the script exits
-non-zero and never prints the last line. Three paths of the port run: the
+non-zero and never prints the last line. Four paths of the port run: the
 ensemble rollout of the bench workload (inference), the AR trainer of the
-375M and the 1.6B DiT, and the forecast CLI (hub checkpoints in, latent and
-field files out).
+375M and the 1.6B DiT, the forecast CLI (hub checkpoints in, latent and
+field files out), and the rest of the user's chain around it (DCAE
+training, latent encoding, statistics and climatology, ensemble scoring,
+the baseline comparison, cyclone tracking, AR training with validation).
 
   1. environment: the card (nvidia-smi), torch and CUDA versions, and the
      build of the CUDA kernels from ``ladcast_torch/csrc`` (one nvcc per
@@ -51,6 +53,10 @@ field files out).
      cuDNN's ``F.conv2d`` on channels-last tensors as the yardstick (the
      port calls it only under ``CONV_MODE = "library"``), the rate and the
      bound's share of the time;
+  2c. conv scoring: K4 and K5 in fp32 at the scorer's batch (B=20, one
+     lead's members; ``cli.evaluate_ens`` decodes in the fp32 of the
+     parameters it loads) at every decoder shape, circular, against their
+     plain versions, timed beside cuDNN's fp32 ``F.conv2d`` with TF32 off;
   2b. backward kernels: the lse variant of the attention kernel and the
      flash backward (dq, dk/dv) against their plain versions, bf16 and
      fp32, at the training shapes (B=4, S=2250 dual- and single-stream
@@ -108,6 +114,23 @@ field files out).
      two. File layouts, finiteness, the t=0 frame against the encoder, the
      launches of K1, K2, K4 and K5 per init time, and the seconds of load,
      encode, rollout and decode (the decode under both conv modes);
+  6b. chain: on seeded raw fields at the 120 x 240 x 84 grid with SST NaN
+     over land (12 frames of 2018 to train on and to score against, 4 for
+     validation, 12 of 2017 for the climatology), each CLI's ``run`` or
+     ``main``: ``train_dcae`` on configs/dcae_84.yaml (CHAIN_DCAE_STEPS
+     steps, both the unrolled and the rolled step, one validation; ms per
+     step, peak memory, losses, grad norms, K4 and K5 launches per step,
+     the grad-mode packing's ms and share), the DCAE's gradients under the
+     kernels against cuDNN (fp32 and bf16, DCAE_TOL), a decoder finetune on
+     configs/dcae_84_ft_decoder.yaml from the best weights (no encoder
+     parameter may move), ``encode_latents``, ``compute_stats``,
+     ``compute_climatology``, ``evaluate_ens --diagnostics`` on two of the
+     forecast phase's latent files (20 members, 4 leads, fp32 decode;
+     seconds per init time split into decode and scores, launches, finite
+     metrics), ``compare_baseline``'s ``compare``, ``track`` on the Heun
+     forecast's decoded bundle, and ``train_ar`` for CHAIN_AR_STEPS steps
+     with a validation rollout every CHAIN_AR_VAL_EVERY (K1 and K2 in the
+     rollouts, K1-lse and K3 in the steps);
   7. the kernel summary line, the card line and, last, the ok line.
 
 With ``--profile``, one more repetition of the main path runs under
@@ -228,6 +251,60 @@ LADCAST_1P6B_YAML = {
 }
 TRAIN_STEPS_1P6B = 6
 
+# configs/dcae_84.yaml and configs/dcae_84_ft_decoder.yaml as PyYAML reads
+# them (tests/test_torch_train_dcae.py holds these copies to the files).
+_DCAE_84_ENCDEC = {
+    "in_channels": 89, "out_channels": 89, "latent_channels": 84,
+    "attention_head_dim": 32,
+    "encoder_block_types": ["ResBlock", "ResBlock", "EfficientViTBlock",
+                            "EfficientViTBlock"],
+    "decoder_block_types": ["ResBlock", "ResBlock", "EfficientViTBlock",
+                            "EfficientViTBlock"],
+    "encoder_block_out_channels": [252, 504, 504, 1008],
+    "decoder_block_out_channels": [252, 504, 504, 1008],
+    "encoder_layers_per_block": [4, 4, 4, 4],
+    "decoder_layers_per_block": [4, 4, 4, 4],
+    "encoder_qkv_multiscales": [[], [], [5], [5]],
+    "decoder_qkv_multiscales": [[], [], [5], [5]],
+    "upsample_block_type": "pixel_shuffle",
+    "downsample_block_type": "pixel_unshuffle", "static_channels": 5}
+DCAE_84_YAML = {
+    "encdec": _DCAE_84_ENCDEC,
+    "optimizer": {"betas": [0.9, 0.999], "eps": "1e-08", "lr": "1e-4",
+                  "weight_decay": "1e-2"},
+    "lr_scheduler": {"name": "cosine", "num_warmup_steps": 1000},
+    "train": {"batch_size": 4, "subbatch_steps": 3, "lat_weighted_loss": True,
+              "num_train_epochs": 30, "epoch_length": 341875},
+    "accelerator": {"log_with": "jsonl"},
+    "ema": {"use_ema": True, "ema_max_decay": 0.9999, "ema_inv_gamma": 1.0,
+            "ema_power": 0.66667, "ema_update_after_step": 1000},
+    "general": {"seed": 42, "output_dir": "runs/dcae_84",
+                "checkpointing_steps": 40000},
+}
+DCAE_84_FT_YAML = {
+    "encdec": _DCAE_84_ENCDEC,
+    "optimizer": {"betas": [0.9, 0.999], "eps": "1e-08", "lr": "2e-5",
+                  "weight_decay": "1e-2"},
+    "lr_scheduler": {"name": "cosine", "num_warmup_steps": 500},
+    "train": {"batch_size": 4, "subbatch_steps": 3, "lat_weighted_loss": True,
+              "ft_decoder_only": True, "num_train_epochs": 5,
+              "epoch_length": 341875},
+    "ema": {"use_ema": True, "ema_max_decay": 0.9999, "ema_inv_gamma": 1.0,
+            "ema_power": 0.66667, "ema_update_after_step": 500},
+    "general": {"seed": 42, "output_dir": "runs/dcae_84_ft",
+                "checkpointing_steps": 20000},
+}
+# The chain phase's cuts: DCAE training steps (two batches: the unrolled and
+# the rolled steps), finetune steps, AR training steps with a validation
+# every CHAIN_AR_VAL_EVERY, the validation's init times, members and hours.
+CHAIN_DCAE_STEPS = 6
+CHAIN_FT_STEPS = 3
+CHAIN_AR_STEPS = 4
+CHAIN_AR_VAL_EVERY = 2
+CHAIN_VAL = {"init_times": 2, "members": 10, "hours": 24, "steps": 20}
+# The scorer decodes one lead's members at once: B = 20, in fp32.
+SCORE_BATCH = 20
+
 
 RECORDS = None  # --records: a file that also gets every record
 
@@ -240,6 +317,19 @@ def emit(obj):
     if RECORDS is not None:
         with open(RECORDS, "a") as f:
             f.write(line + "\n")
+
+
+def host_peak_rss_gb():
+    """This process's peak resident host memory so far, in GB."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+
+
+def dir_gb(path):
+    """The bytes of the files under ``path``, in GB."""
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files) / 1e9
 
 
 def nvidia_smi_line():
@@ -648,6 +738,81 @@ def conv_kernel_phase(peaks):
                 del out, ref
             del x, kk, w_oihw
         torch.cuda.empty_cache()
+    return results
+
+
+def conv_scoring_phase(peaks):
+    """K4 and K5 in fp32 at the scorer's shapes: ``cli.evaluate_ens``
+    decodes the 20 members of one lead at a time with the fp32 parameters
+    it loads, so every decoder conv runs at B = SCORE_BATCH in fp32
+    (circular, as the path runs them; the dense ones on the fp32 FMA kernel,
+    ``conv_f32_kernel``). Each against its plain version, timed beside
+    cuDNN's fp32 ``F.conv2d`` with TF32 off, the same function."""
+    import torch
+    import torch.nn.functional as F
+
+    from ladcast_torch.cli.evaluate_ens import _exact_fp32_convs
+    from ladcast_torch.ops import dense_conv as dc
+    from ladcast_torch.ops import depthwise_conv as dw
+
+    dev = torch.device("cuda")
+    _, peak_f32, bw, _ = peaks
+    g = torch.Generator(device=dev).manual_seed(6)
+    B, tkw = SCORE_BATCH, dict(rounds=5, inner=1, warmup=1)
+    results = {"dense_conv": [], "depthwise_conv": []}
+    with _exact_fp32_convs():
+        for kname, shapes in (("dense_conv", DECODER_DENSE),
+                              ("depthwise_conv", DEPTHWISE_SHAPES)):
+            for shape in shapes:
+                dense = kname == "dense_conv"
+                if dense:
+                    H, W, Cin, Cout = shape
+                    k, groups, case = 3, 1, f"{H}x{W}x{Cin}->{Cout}"
+                    w = torch.randn((k, k, Cin, Cout), generator=g, device=dev) * (
+                        k * k * Cin) ** -0.5
+                    w_oihw = w.permute(3, 2, 0, 1).contiguous(
+                        memory_format=torch.channels_last)
+                    fwd, plain_fn = dc.dense_conv_forward, dc.dense_conv_plain
+                else:
+                    H, W, Cin, k = shape
+                    Cout, groups, case = Cin, Cin, f"{H}x{W}x{Cin} k{k}"
+                    w = torch.randn((k, k, Cin), generator=g, device=dev) / k
+                    w_oihw = w.permute(2, 0, 1)[:, None].contiguous()
+                    fwd = dw.depthwise_same_conv_forward
+                    plain_fn = dw.depthwise_same_conv_plain
+                flops = 2 * k * k * (Cout if dense else 1) * Cin * B * H * W
+                p = k // 2
+                pads = ((p, p), (p, p))
+                x = torch.randn((B, H, W, Cin), generator=g, device=dev)
+                xw = torch.cat([x[:, :, W - p:], x, x[:, :, :p]], dim=2).permute(0, 3, 1, 2)
+
+                def run(fn=fwd):
+                    return fn(x, w, pads, True)
+
+                def plain(fn=plain_fn):
+                    return fn(x, w, pads, True)
+
+                out, ref = run(), plain()
+                torch.cuda.synchronize()
+                nbytes = (x.numel() + w.numel() + B * H * W * Cout) * 4
+                rec = {"phase": "conv_scoring", "kernel": kname, "case": case,
+                       "kind": "scoring", "dtype": "float32", "B": B, "k": k,
+                       "circular": True,
+                       **compare(out, ref, kernel_tolerance(kname, "float32", ref)),
+                       "finite": bool(torch.isfinite(out).all()),
+                       **bound(flops, nbytes, peak_f32, bw),
+                       "ms": time_ms(run, **tkw), "plain_ms": time_ms(plain, **tkw),
+                       # the wrap columns concatenated outside the timed call
+                       "library_ms": time_ms(lambda: F.conv2d(
+                           xw, w_oihw, padding=(p, 0), groups=groups), **tkw),
+                       "library_tf32": torch.backends.cudnn.allow_tf32}
+                rec.update(rates(flops, rec))
+                emit(rec)
+                results[kname].append(rec)
+                if not (rec["ok"] and rec["finite"]):
+                    raise AssertionError(f"{kname} at the scorer's shape: {rec}")
+                del x, xw, w, w_oihw, out, ref
+    torch.cuda.empty_cache()
     return results
 
 
@@ -1635,8 +1800,329 @@ def forecast_phase(tmp):
         results[sampler] = rec
         if not ok:
             raise AssertionError(f"forecast, {sampler}: {rec}")
-        shutil.rmtree(out)
+        rec["out_dir"] = out  # the chain phase scores and tracks these files
     return results
+
+
+def raw_fields(path, stamps, seed):
+    """A seeded ``.npz`` of raw (physical) fields (len(stamps), 120, 240,
+    84) at the ERA5 statistics' scale, SST NaN over the land of the static
+    land-sea mask (south-pole row cropped), as ERA5 has it."""
+    import numpy as np
+
+    from ladcast_torch import static_data
+
+    fm, fs = static_data.era5_mean_std()
+    raw = (np.random.RandomState(seed).randn(len(stamps), 120, 240, 84) * fs
+           + fm).astype(np.float32)
+    lsm = np.load(ROOT / "ladcast_torch" / "static" / "240x121_land_sea_mask.npy")[1:]
+    raw[:, lsm >= 0.5, 82] = np.nan
+    np.savez(path, fields=raw, timestamps=np.asarray(stamps, np.int64))
+
+
+def check_launches(name, got, expected):
+    if got != expected:
+        raise AssertionError(f"{name}: launches {got}, expected {expected}")
+
+
+def dcae_grad_parity(model, fields, nan_mask, statics):
+    """The DCAE training loss's gradients (a per-sample roll injected) with
+    the sphere convs on the kernels against cuDNN, fp32 and bf16 compute:
+    relative L2 over all parameters within DCAE_TOL."""
+    import torch
+
+    from ladcast_torch.config import DCAEConfig, config_from_dict
+    from ladcast_torch.train.optim import make_optimizer
+    from ladcast_torch.train.trainer_dcae import DCAETrainConfig, make_dcae_train_step
+
+    cfg = config_from_dict(DCAEConfig, DCAE_84_YAML["encdec"])
+    params = list(model.parameters())
+    roll = [[37, 11], [200, 93]]  # (x, y) per sample
+    for dname in ("float32", "bfloat16"):
+        _, step, _ = make_dcae_train_step(cfg, DCAETrainConfig(compute_dtype=dname),
+                                          make_optimizer(), fields.device)
+        losses, grads = {}, {}
+        for mode in ("kernel", "library"):
+            with conv_mode(mode):
+                _reset_conv_launches()
+                loss, _ = step.loss_given_roll(model, fields, nan_mask, statics, roll)
+                grads[mode] = torch.autograd.grad(loss, params)
+                losses[mode] = loss.item()
+                if mode == "kernel":
+                    launches = _conv_launches()
+        num = sum((a - b).float().square().sum() for a, b in zip(*grads.values()))
+        den = sum(b.float().square().sum() for b in grads["library"])
+        per = [((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+               for a, b in zip(*grads.values())]
+        rec = {"phase": "dcae_grad_parity", "dtype": dname, "B": fields.shape[0],
+               "loss": losses, "rel_l2": (num / den).sqrt().item(),
+               "max_param_rel_l2": max(per), "tol": DCAE_TOL[dname],
+               "finite": all(bool(torch.isfinite(g).all()) for g in grads["kernel"]),
+               "kernel_launches": launches}
+        emit(rec)
+        if not (rec["finite"] and rec["rel_l2"] <= DCAE_TOL[dname]):
+            raise AssertionError(f"DCAE gradients, kernel against library: {rec}")
+        del grads
+        torch.cuda.empty_cache()
+
+
+def chain_phase(tmp, forecast, device="cuda"):
+    """The rest of the user's chain at full width, through the CLIs' run
+    functions on the shipped configs: train the DCAE (configs/dcae_84.yaml,
+    CHAIN_DCAE_STEPS steps with a validation at the end), its gradients on
+    the kernels against cuDNN, a decoder finetune
+    (configs/dcae_84_ft_decoder.yaml) from the best weights, encode latents
+    with them, compute stats and a climatology, score the forecast phase's
+    latent files (fp32 decode) against truth with that climatology, compare
+    with the paper's baseline, track cyclones through the decoded
+    forecast, and train the 375M with validation rollouts. Every CLI runs on
+    ``device``."""
+    import numpy as np
+    import torch
+
+    from ladcast_torch import static_data
+    from ladcast_torch.cli import (
+        compare_baseline,
+        compute_climatology,
+        compute_stats,
+        encode_latents,
+        evaluate_ens,
+        track,
+        train_ar,
+        train_dcae,
+    )
+    from ladcast_torch.cli.pred_rollout import _load_any_params
+    from ladcast_torch.config import DCAEConfig, config_from_dict
+    from ladcast_torch.data.time_utils import add_hours_int
+    from ladcast_torch.models.dcae import SphereConv
+    from ladcast_torch.ops import flash_attention as fa
+    from ladcast_torch.ops.dense_conv import pack_dense_weight
+
+    summary = {}
+    t0 = time.perf_counter()
+    data = {k: os.path.join(tmp, f"chain_{k}.npz") for k in ("train", "val", "clim")}
+    raw_fields(data["train"], [add_hours_int(2018010100, 6 * i) for i in range(12)], 31)
+    raw_fields(data["val"], [add_hours_int(2018020100, 6 * i) for i in range(4)], 32)
+    # a climatology from another year's frames at the same days and hours
+    raw_fields(data["clim"], [add_hours_int(2017010100, 6 * i) for i in range(12)], 33)
+    emit({"phase": "chain_setup", "write_s": time.perf_counter() - t0,
+          "frames": {"train": 12, "val": 4, "clim": 12}})
+
+    # 1. DCAE training, then its gradients on the kernels against cuDNN
+    run_dir = os.path.join(tmp, "dcae_run")
+    args = train_dcae.build_parser().parse_args(
+        ["--data", data["train"], "--val_data", data["val"], "--val_every",
+         str(CHAIN_DCAE_STEPS), "--num_steps", str(CHAIN_DCAE_STEPS),
+         "--output_dir", run_dir, "--log_every", "1", "--seed", "0",
+         "--device", device])
+    _reset_conv_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = train_dcae.run(DCAE_84_YAML, args)
+    wall_s = time.perf_counter() - t0
+    launches = _conv_launches()
+    state, hist = res["state"], res["history"]
+    enc_convs = sphere_conv_counts(state.model.encoder)
+    dec_convs = sphere_conv_counts(state.model.decoder)
+    per_fwd = {k: enc_convs[k] + dec_convs[k] for k in enc_convs}
+    # every step and the one validation batch run the model forward once
+    forwards = CHAIN_DCAE_STEPS + len(res["validations"])
+    check_launches("train_dcae", launches, {k: forwards * v for k, v in per_fwd.items()})
+    dense = [m.weight.detach().to(torch.bfloat16) for m in state.model.modules()
+             if isinstance(m, SphereConv) and m.groups == 1]
+    # in grad mode each forward lays out and packs every dense weight
+    pack_ms = time_ms(lambda: [pack_dense_weight(w.permute(2, 3, 1, 0).contiguous())
+                               for w in dense], rounds=5, inner=1)
+    step_ms = [h["step_s"] * 1e3 for h in hist]
+    rec = {"phase": "chain_train_dcae", "steps": len(hist), "batch": 4,
+           "subbatch_steps": 3, "compute_dtype": "bfloat16",
+           "parameters": sum(p.numel() for p in state.model.parameters()),
+           "median_step_ms": statistics.median(step_ms[2:]), "step_ms": step_ms,
+           "loss": [h["loss"] for h in hist], "grad_norm": [h["grad_norm"] for h in hist],
+           "val_loss": [v["val_loss"] for v in res["validations"]],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+           "run_wall_s": wall_s, "launches": launches, "forwards": forwards,
+           "launches_per_step": {k: v // forwards for k, v in launches.items()},
+           "pack_ms_per_step": pack_ms}
+    rec["pack_share_of_step"] = pack_ms / rec["median_step_ms"]
+    emit(rec)
+    if (len(hist) != CHAIN_DCAE_STEPS or len(res["validations"]) != 1
+            or not all(math.isfinite(x) for x in rec["loss"] + rec["grad_norm"]
+                       + rec["val_loss"])):
+        raise AssertionError(f"train_dcae: {rec}")
+    summary["train_dcae"] = rec
+    fm, fs = static_data.era5_mean_std()
+    with np.load(data["train"]) as d:
+        x = (d["fields"][:2] - fm) / fs
+    nan_mask = torch.from_numpy(np.isnan(x[..., 82])).to(device)
+    fields = torch.from_numpy(np.where(np.isnan(x), -2.0, x).astype(np.float32)).to(device)
+    statics = torch.from_numpy(static_data.static_conditioning_tensor("HWC")).to(device)
+    dcae_grad_parity(state.model, fields, nan_mask, statics)
+    del res, state, dense, fields, nan_mask
+    shutil.rmtree(os.path.join(run_dir, "ckpts"))  # the 4 GB training state
+    torch.cuda.empty_cache()
+
+    best_dir = os.path.join(run_dir, "best", f"step-{CHAIN_DCAE_STEPS}")
+    loaded, _ = _load_any_params(best_dir, "dcae", None)
+    ft_dir = os.path.join(tmp, "dcae_ft")
+    ft = train_dcae.run(DCAE_84_FT_YAML, train_dcae.build_parser().parse_args(
+        ["--data", data["train"], "--init_weights", best_dir, "--num_steps",
+         str(CHAIN_FT_STEPS), "--output_dir", ft_dir, "--log_every", "1", "--seed", "1",
+         "--device", device]))
+    moved = {"encoder": 0, "decoder": 0}
+    for n, p in ft["state"].model.named_parameters():
+        moved[n.split(".")[0]] += not torch.equal(p.detach().cpu(), loaded[n])
+    rec = {"phase": "chain_finetune", "steps": len(ft["history"]),
+           "loss": [h["loss"] for h in ft["history"]],
+           "step_ms": [h["step_s"] * 1e3 for h in ft["history"]],
+           "parameters_moved": moved}
+    emit(rec)
+    if (rec["steps"] != CHAIN_FT_STEPS or moved["encoder"] or not moved["decoder"]
+            or not all(math.isfinite(x) for x in rec["loss"])):
+        raise AssertionError(f"decoder finetune: {rec}")
+    del ft, loaded
+    shutil.rmtree(ft_dir)
+    torch.cuda.empty_cache()
+
+    # 2. encode latents with the trained DCAE, stats and a climatology
+    _reset_conv_launches()
+    t0 = time.perf_counter()
+    enc = encode_latents.run(encode_latents.build_parser().parse_args(
+        ["--data", data["train"], "--dcae_params", best_dir, "--output",
+         os.path.join(tmp, "chain_latents.npz"), "--device", device]))
+    enc_wall = time.perf_counter() - t0
+    check_launches("encode_latents", _conv_launches(), enc_convs)
+    t0 = time.perf_counter()
+    compute_stats.main(["--data", data["train"], "--output",
+                        os.path.join(tmp, "stats.json"), "--start_year", "2018",
+                        "--end_year", "2018"])
+    stats_s = time.perf_counter() - t0
+    rss_before = host_peak_rss_gb()
+    t0 = time.perf_counter()
+    clim = os.path.join(tmp, "clim.npz")
+    compute_climatology.main(["--data", data["clim"], "--output", clim])
+    clim_s = time.perf_counter() - t0
+    with open(os.path.join(tmp, "stats.json")) as f:
+        stats = json.load(f)
+    rec = {"phase": "chain_data", "encode_s": enc["encode_s"], "encode_wall_s": enc_wall,
+           "latents_shape": list(enc["latents"].shape),
+           "latents_finite": bool(np.isfinite(enc["latents"]).all()),
+           "stats_s": stats_s, "stats_vars": len(stats),
+           "stats_finite": all(math.isfinite(v) for var in stats.values()
+                               for k in ("mean", "std")
+                               for v in (var[k].values() if isinstance(var[k], dict)
+                                         else [var[k]])),
+           "climatology_s": clim_s, "clim_npz_gb": os.path.getsize(clim) / 1e9,
+           # the process's peak resident host memory before and after the
+           # climatology's fp64 sums and float32 result
+           "host_peak_rss_gb": {"before_climatology": rss_before,
+                                "after_climatology": host_peak_rss_gb()}}
+    emit(rec)
+    cfg = config_from_dict(DCAEConfig, DCAE_84_YAML["encdec"])
+    r = cfg.spatial_compression_ratio
+    if not (rec["latents_shape"] == [12, 120 // r, 240 // r, cfg.latent_channels]
+            and rec["latents_finite"]
+            and rec["stats_finite"] and rec["stats_vars"] == 12):
+        raise AssertionError(f"encode, stats, climatology: {rec}")
+    summary["data"] = rec
+
+    # 3. score the forecast phase's files (two init times) in fp32
+    score_dir = os.path.join(tmp, "to_score")
+    os.makedirs(score_dir)
+    for sampler, ts in (("edm", 2018010100), ("dpm", 2018010112)):
+        shutil.copy(os.path.join(forecast[sampler]["out_dir"], f"latent_{ts}.npy"),
+                    score_dir)
+    scores_dir = os.path.join(tmp, "scores")
+    _reset_conv_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = evaluate_ens.run(evaluate_ens.build_parser().parse_args(
+        ["--latent_dir", score_dir, "--truth", data["train"], "--climatology", clim,
+         "--dcae_params", os.path.join(tmp, "dcae"), "--output_dir", scores_dir,
+         "--diagnostics", "--device", device]))
+    wall_s = time.perf_counter() - t0
+    inits = [r for r in res["records"] if r.get("scored")]
+    leads = 4
+    expected = {k: len(inits) * leads * v for k, v in dec_convs.items()}
+    launches = _conv_launches()
+    arrays = {f: np.load(os.path.join(scores_dir, f))
+              for f in sorted(os.listdir(scores_dir)) if f.endswith(".npy")
+              and ".rank" not in f}
+    verdict = compare_baseline.compare(scores_dir, step_size_hour=6)
+    rec = {"phase": "chain_evaluate_ens", "init_times": [r["init_time"] for r in inits],
+           "members": 20, "leads": leads, "dtype": "float32",
+           "decode_s": [r["decode_s"] for r in inits],
+           "score_s": [r["score_s"] for r in inits],
+           "per_init_s": [r["seconds"] for r in inits], "run_wall_s": wall_s,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+           "host_peak_rss_gb": host_peak_rss_gb(), "tmp_dir_gb": dir_gb(tmp),
+           "launches": launches, "expected_launches": expected,
+           "shapes": {k: list(v.shape) for k, v in arrays.items()},
+           "finite": {k: bool(np.isfinite(v).all()) for k, v in arrays.items()},
+           "summary_vars": len(res["summary"]),
+           "compare_baseline": {k: verdict[k] for k in ("num_pass", "num_scored",
+                                                         "all_pass")}}
+    emit(rec)
+    check_launches("evaluate_ens", launches, expected)
+    if (len(inits) != 2 or not all(rec["finite"].values())
+            or rec["shapes"]["rank_hist.npy"] != [2, 84, leads, 21]
+            or verdict["num_scored"] == 0):
+        raise AssertionError(f"evaluate_ens: {rec}")
+    summary["evaluate_ens"] = rec
+
+    # 4. cyclone tracks through the decoded forecast
+    t0 = time.perf_counter()
+    tracks = track.run(track.build_parser().parse_args(
+        ["--forecast", os.path.join(forecast["edm"]["out_dir"], "fields_2018010100.npz"),
+         "--lat0", "15.0", "--lon0", "285.0", "--n_steps", "4", "--output_csv",
+         os.path.join(tmp, "tracks.csv")]))
+    rec = {"phase": "chain_track", "seconds": time.perf_counter() - t0,
+           "members": len(tracks), "fixes": sorted({len(t) for t in tracks.values()})}
+    emit(rec)
+    if rec["members"] != 20 or rec["fixes"] != [5]:
+        raise AssertionError(f"track: {rec}")
+
+    # 5. the 375M trainer with validation rollouts every CHAIN_AR_VAL_EVERY
+    latents = synthetic_latents(tmp)
+    ar_dir = os.path.join(tmp, "ar_run")
+    _reset_launches(fa)
+    t0 = time.perf_counter()
+    res = train_ar.run(LADCAST_375M_YAML, train_ar.build_parser().parse_args(
+        ["--latents", latents, "--num_steps", str(CHAIN_AR_STEPS), "--output_dir", ar_dir,
+         "--log_every", "1", "--seed", "0", "--val_every", str(CHAIN_AR_VAL_EVERY),
+         "--val_latents", latents,
+         "--val_num_init_times", str(CHAIN_VAL["init_times"]),
+         "--val_ensemble_size", str(CHAIN_VAL["members"]),
+         "--val_total_lead_time_hour", str(CHAIN_VAL["hours"]),
+         "--val_num_inference_steps", str(CHAIN_VAL["steps"]), "--device", device]))
+    wall_s = time.perf_counter() - t0
+    launches = _launches(fa)
+    n_val = CHAIN_AR_STEPS // CHAIN_AR_VAL_EVERY
+    # per validation: init times x repetitions x Heun's 2n - 1 DiT calls x 7
+    per_val = (CHAIN_VAL["init_times"] * (CHAIN_VAL["hours"] // 24)
+               * (2 * CHAIN_VAL["steps"] - 1) * 7)
+    n = 7 * CHAIN_AR_STEPS
+    expected = {"norm_rope": n + n_val * per_val, "fused_attention": n + n_val * per_val,
+                "fused_attention_lse": n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+    vals = res["validations"]
+    rec = {"phase": "chain_train_ar", "steps": len(res["history"]),
+           "loss": [h["loss"] for h in res["history"]],
+           "validations": [{k: v[k] for k in ("step", "val_latent_rmse", "val_latent_crps")}
+                           for v in vals],
+           "validation_launches_each": {"norm_rope": per_val, "fused_attention": per_val},
+           "launches": launches, "expected_launches": expected, "run_wall_s": wall_s}
+    emit(rec)
+    check_launches("train_ar with validation", launches, expected)
+    if ([v["step"] for v in vals] != [CHAIN_AR_VAL_EVERY * (i + 1) for i in range(n_val)]
+            or not all(math.isfinite(v["val_latent_rmse"]) and math.isfinite(
+                v["val_latent_crps"]) for v in vals)
+            or not all(math.isfinite(x) for x in rec["loss"])):
+        raise AssertionError(f"train_ar with validation: {rec}")
+    summary["train_ar"] = rec
+    del res
+    shutil.rmtree(ar_dir)
+    torch.cuda.empty_cache()
+    return summary
 
 
 # kernel-name fragments -> category, first match wins: every kernel of
@@ -1786,6 +2272,9 @@ def main():
     results.update(conv_kernel_phase(peaks))
     emit({"phase": "conv_kernel_done", "wall_s": time.perf_counter() - t0})
     t0 = time.perf_counter()
+    scoring = conv_scoring_phase(peaks)
+    emit({"phase": "conv_scoring_done", "wall_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
     results.update(backward_kernel_phase(peaks))
     emit({"phase": "backward_kernel_done", "wall_s": time.perf_counter() - t0})
     t0 = time.perf_counter()
@@ -1813,7 +2302,10 @@ def main():
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         forecast = forecast_phase(tmp)
-    emit({"phase": "forecast_done", "wall_s": time.perf_counter() - t0})
+        emit({"phase": "forecast_done", "wall_s": time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        chain = chain_phase(tmp, forecast)
+        emit({"phase": "chain_done", "wall_s": time.perf_counter() - t0})
     forecast_launches = forecast["edm"]["launches"]
 
     src = "ladcast_tpu/ops/pallas/flash_attention.py"
@@ -1852,6 +2344,8 @@ def main():
         e = entry(kname, results[kname], launches[kname])
         e["training_launches"] = train_launches[kname]
         e["forecast_launches"] = forecast_launches[kname]
+        # the chain's AR trainer: its steps and validation rollouts
+        e["chain_train_ar_launches"] = chain["train_ar"]["launches"][kname]
         summary.append(e)
     e = entry("fused_attention_lse", results["fused_attention_lse"],
               train_launches["fused_attention_lse"])
@@ -1875,6 +2369,18 @@ def main():
         e = entry(kname, results[kname], forecast_launches[kname], case, batch)
         e["batch"] = batch
         e["bench_launches"] = launches[kname]
+        # the chain: per DCAE training step (forward only; the backward is
+        # the plain version's VJP) and per scored init time (4 leads)
+        td, ev = chain["train_dcae"], chain["evaluate_ens"]
+        e["chain_launches"] = {
+            "train_dcae_per_step": td["launches"][kname] // td["forwards"],
+            "evaluate_ens_per_init_time":
+                ev["launches"][kname] // len(ev["init_times"])}
+        sc = next(r for r in scoring[kname]
+                  if r["case"] == KERNEL_LINE_CASES[kname][0])
+        e["fp32_scoring"] = {k: sc[k] for k in ("case", "B", "ms", "plain_ms",
+                                                "library_ms", "bound_ms", "bound_by",
+                                                "tflops", "bound_share")}
         summary.append(e)
     e = entry("flash_attention", results["flash_attention"], k6_launches, "s2250")
     e["batch"] = 2

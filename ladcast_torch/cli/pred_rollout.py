@@ -58,6 +58,21 @@ class NpzFieldSource:
         return self.fields[idx]
 
 
+def open_field_source(path: str, split: str = None):
+    """(source, timestamps int64) of an ERA5 field source; ``split`` keeps
+    a named split's years (``data.time_utils.split_timestamps``). Only
+    ``.npz`` bundles are ported."""
+    if not path.endswith(".npz"):
+        raise NotImplementedError(
+            f"{path}: only .npz bundles are ported; zarr stores and tar "
+            f"directories wait for ROADMAP.md Queue 1 item M13 (data)")
+    src = NpzFieldSource(path)
+    ts = np.asarray(src.timestamps, np.int64)
+    if split:
+        ts = time_utils.split_timestamps(ts, split)
+    return src, ts
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--data", required=True, help="ERA5 .npz bundle")
@@ -118,10 +133,12 @@ _NOT_PORTED = [
 ]
 
 
-def _trainer_checkpoint_params(path: str, cfg):
-    """The DiT weights of the newest step in a checkpoint directory of
-    ``ladcast_torch.cli.train_ar``: the EMA average where the run kept one
-    (what the reference evaluates), else the raw parameters."""
+def _trainer_checkpoint_params(path: str, kind: str, cfg):
+    """The weights of the newest step in a checkpoint directory of
+    ``ladcast_torch.cli.train_ar`` (the DiT) or ``cli.train_dcae`` (the
+    DCAE): the EMA average where the run kept one (what the reference
+    evaluates), else the raw parameters."""
+    from ladcast_torch.models.dcae import AutoencoderDC
     from ladcast_torch.models.ladcast_dit import LaDCastTransformer3D
     from ladcast_torch.train import checkpoint as ckpt
 
@@ -129,7 +146,8 @@ def _trainer_checkpoint_params(path: str, cfg):
     if state.get("ema") is None:
         return state["params"]
     with torch.device("meta"):
-        names = [n for n, _ in LaDCastTransformer3D(cfg).named_parameters()]
+        model = LaDCastTransformer3D(cfg) if kind == "dit" else AutoencoderDC(cfg)
+        names = [n for n, _ in model.named_parameters()]
     ema = state["ema"]["params"]
     if len(ema) != len(names):
         raise ValueError(f"{path}: {len(ema)} EMA tensors for a model of "
@@ -146,8 +164,9 @@ def _load_any_params(path: str, kind: str, cfg, subfolder: str = None):
       ``ar_model`` / ``ar_model_ema`` subfolders included, single or
       index-sharded safetensors): the config comes from its
       ``config.json`` and the caller's ``cfg`` is ignored;
-    - for the DiT, a checkpoint directory of ``ladcast_torch.cli.train_ar``
-      (``step_*.pt`` files), with the caller's ``cfg``.
+    - a checkpoint directory of ``ladcast_torch.cli.train_ar`` (the DiT)
+      or ``cli.train_dcae`` (the DCAE) (``step_*.pt`` files), with the
+      caller's ``cfg``.
     """
     if path.endswith(".safetensors"):
         from ladcast_torch.models.safetensors_io import load_file
@@ -156,8 +175,8 @@ def _load_any_params(path: str, kind: str, cfg, subfolder: str = None):
     if hub.is_hub_dir(path):
         loaded = hub.load_pretrained(path, subfolder, expect_kind=kind)
         return loaded.params, loaded.config
-    if kind == "dit" and os.path.isdir(path):
-        return _trainer_checkpoint_params(path, cfg), cfg
+    if os.path.isdir(path):
+        return _trainer_checkpoint_params(path, kind, cfg), cfg
     raise FileNotFoundError(
         f"{path}: neither a .safetensors file, a diffusers model directory "
         f"nor a trainer checkpoint directory")

@@ -9,7 +9,8 @@ device: CUDA unless ``--device cpu`` is given. fp32 master weights with
 ``--compute_dtype`` compute, AdamW with global-norm clip 1.0 and the
 config's LR schedule, EMA, torch checkpoints with rotation under
 ``<output_dir>/ckpts``, and one JSON line per logged step in
-``<output_dir>/metrics.jsonl``.
+``<output_dir>/metrics.jsonl``; with ``--val_every N --val_latents
+val.npz``, an ensemble validation every N steps (``train.validation``).
 
 :func:`main` parses the arguments and reads the YAML; :func:`run` trains
 from a config dict, so a caller without PyYAML can pass the dict itself.
@@ -83,10 +84,21 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--log_every", type=int, default=50,
                     help="log every N steps (and the first)")
+    ap.add_argument("--val_latents", default=None,
+                    help="held-out .npz latents for ensemble validation")
+    ap.add_argument("--val_every", type=int, default=0,
+                    help="run ensemble validation every N steps (0 = off)")
+    ap.add_argument("--val_ensemble_size", type=int, default=10)
+    ap.add_argument("--val_num_init_times", type=int, default=4)
+    ap.add_argument("--val_total_lead_time_hour", type=int, default=240)
+    ap.add_argument("--val_num_inference_steps", type=int, default=20)
+    ap.add_argument("--val_dcae_params", default=None,
+                    help="a DCAE (diffusers directory, .safetensors or "
+                         "checkpoint directory): decode the validation "
+                         "ensemble and log per-variable physical RMSE and "
+                         "CRPS tables by lead time; omit for latent-only")
     # flags of the JAX CLI whose modules are not ported yet
     ap.add_argument("--reader", default="auto", choices=["auto", "native", "mmap"])
-    ap.add_argument("--val_latents", default=None)
-    ap.add_argument("--val_every", type=int, default=0)
     ap.add_argument("--mesh", default=None)
     ap.add_argument("--zero", action=argparse.BooleanOptionalAction, default=None)
     return ap
@@ -96,9 +108,6 @@ _NOT_PORTED = [
     (lambda a: a.reader == "native",
      "--reader native: the C++ shard reader waits for ROADMAP.md Queue 1 "
      "item M13 (data)"),
-    (lambda a: a.val_every and a.val_latents,
-     "--val_every with --val_latents: train/validation.py waits for "
-     "ROADMAP.md Queue 1 item M11 (training, validation)"),
     (lambda a: a.mesh or a.zero,
      "--mesh / --zero: parallelism waits for ROADMAP.md Queue 1 item M12"),
 ]
@@ -144,11 +153,101 @@ def export_hub(hub_dir: str, model_cfg, tcfg: ARTrainConfig, state) -> None:
                           "optimization_step": int(state.step)})
 
 
+def make_validation(args, sched_cfg, wcfg, tcfg, cfg, device):
+    """``run_validation(state, step) -> record``: the EMA weights (else the
+    model's) in the trainer's compute dtype drive ``train.validation``'s
+    ensemble rollouts from ``--val_num_init_times`` init times of
+    ``--val_latents``, spread evenly; with ``--val_dcae_params`` the
+    decoded tables as well."""
+    from ladcast_torch import channels as ch
+    from ladcast_torch.config import DCAEConfig, RolloutConfig
+    from ladcast_torch.data import time_utils
+    from ladcast_torch.metrics.weights import cos_lat_weights
+    from ladcast_torch.train.validation import validate_ar_model
+
+    lm, ls = static_data.latent_mean_std()
+    rcfg = RolloutConfig(
+        ensemble_size=args.val_ensemble_size,
+        return_seq_len=wcfg.return_seq_len, input_seq_len=wcfg.input_seq_len,
+        num_inference_steps=args.val_num_inference_steps,
+        total_lead_time_hour=args.val_total_lead_time_hour, step_size_hour=6)
+    val_ds = ARLatentDataset(
+        load_latent_source(args.val_latents),
+        ARWindowConfig(wcfg.input_seq_len, rcfg.total_num_steps,
+                       wcfg.interval_between_pred, 1),
+        mean=lm, std=ls, target_std=0.5)
+    vin, vtg, vyp = [], [], []
+    for i in np.linspace(0, len(val_ds) - 1, args.val_num_init_times).astype(int):
+        inp, tgt, ts = val_ds[int(i)]
+        vin.append(inp)
+        vtg.append(tgt)
+        vyp.append(time_utils.rollout_year_progress(
+            ts, rcfg.num_repetitions, rcfg.step_size_hour * rcfg.return_seq_len))
+    vin = torch.from_numpy(np.stack(vin)).to(device)
+    vtg = torch.from_numpy(np.stack(vtg)).to(device)
+    vyp = np.stack(vyp)
+    c_dtype = getattr(torch, tcfg.compute_dtype)
+
+    decode = {}
+    if args.val_dcae_params:
+        from ladcast_torch.cli.pred_rollout import _load_any_params
+        from ladcast_torch.models import hub
+
+        params, dcae_cfg = _load_any_params(
+            args.val_dcae_params, "dcae",
+            config_from_dict(DCAEConfig, cfg.get("encdec", {})))
+        dcae = hub.build_model("dcae", dcae_cfg, params, device, c_dtype)
+        n_field = dcae_cfg.out_channels - dcae_cfg.static_channels
+        if n_field == ch.NUM_DYNAMIC_CHANNELS:
+            field_stats = static_data.era5_mean_std()
+            channel_names = ch.channel_names()
+        else:  # small configs: identity statistics, generic names
+            field_stats = (np.zeros(n_field, np.float32), np.ones(n_field, np.float32))
+            channel_names = [f"ch{i}" for i in range(n_field)]
+        h_dec = vin.shape[-3] * 2 ** (len(dcae_cfg.decoder_block_out_channels) - 1)
+        decode = dict(
+            decode_fn=lambda z: dcae.decode(z.to(c_dtype)),
+            latent_stats=(lm, ls), field_stats=field_stats,
+            grid_lat_weight=cos_lat_weights(np.linspace(-88.5, 90.0, h_dec)))
+        lead_hours = [rcfg.step_size_hour * (i + 1)
+                      for i in range(rcfg.total_num_steps)]
+
+    def run_validation(state, step) -> dict:
+        model = state.model
+        names = [n for n, _ in model.named_parameters()]
+        weights = (state.ema.params if state.ema is not None
+                   else list(model.parameters()))
+        cast = {n: p.to(c_dtype) for n, p in zip(names, weights)}
+
+        def net_fn(latents, c_noise, cond, yp):
+            return torch.func.functional_call(
+                model, cast, (latents.to(c_dtype), c_noise, cond.to(c_dtype),
+                              yp)).float()
+
+        m = validate_ar_model(net_fn, vin, vtg, vyp, 1234, sched_cfg, rcfg,
+                              **decode)
+        rec = {"val_latent_rmse": float(m["latent_rmse"].mean()),
+               "val_latent_crps": float(m["latent_crps"].mean())}
+        if decode:
+            # per-variable tables by lead time, averaged over init times
+            for name, key in (("val_rmse_ens", "rmse_ens"),
+                              ("val_rmse_single", "rmse_single"),
+                              ("val_crps", "crps")):
+                rec[name] = {"lead_hours": lead_hours,
+                             **{cn: [round(float(x), 6) for x in row]
+                                for cn, row in zip(channel_names,
+                                                   m[key].mean(axis=0))}}
+        return rec
+
+    return run_validation
+
+
 def run(cfg: dict, args: argparse.Namespace) -> dict:
     """Train from the config dict ``cfg`` with the options ``args``
     (:func:`build_parser`). Returns {"state": the final TrainState,
     "history": one record per logged step, "train_step": the step function
-    (see ``train.trainer_ar.make_ar_train_step``)}."""
+    (see ``train.trainer_ar.make_ar_train_step``), "validations": one
+    record per validation (``--val_every`` with ``--val_latents``)}."""
     for unsupported, msg in _NOT_PORTED:
         if unsupported(args):
             raise NotImplementedError(msg)
@@ -229,6 +328,10 @@ def run(cfg: dict, args: argparse.Namespace) -> dict:
                 torch._foreach_copy_(state.ema.params,
                                      list(state.model.parameters()))
     start_step = state.step
+    run_validation = None
+    if args.val_every and args.val_latents:
+        run_validation = make_validation(args, sched_cfg, wcfg, tcfg, cfg, device)
+    validations = []
     logger = MetricLogger(out_dir, config=cfg)
     ckpt_every = gen_cfg.get("checkpointing_steps", 50000)
     timer = PhaseTimer()
@@ -257,6 +360,12 @@ def run(cfg: dict, args: argparse.Namespace) -> dict:
                     rec["peak_mem_gb"] = torch.cuda.max_memory_allocated(device) / 2**30
                 logger.log({**rec, "phases": timer.summary()}, step)
                 history.append({"step": step, **rec})
+            if run_validation is not None and step % args.val_every == 0:
+                with timer.phase("validation"):
+                    validations.append({"step": step,
+                                        **run_validation(state, step)})
+                logger.log(validations[-1], step)
+                t0 = time.perf_counter()  # the step time leaves validation out
             if step % ckpt_every == 0 or step == num_steps:
                 with timer.phase("checkpoint"):
                     ckpt.save_state(mgr, step, state)
@@ -266,7 +375,8 @@ def run(cfg: dict, args: argparse.Namespace) -> dict:
     finally:
         it.close()
         logger.close()
-    return {"state": state, "history": history, "train_step": train_step}
+    return {"state": state, "history": history, "validations": validations,
+            "train_step": train_step}
 
 
 def main(argv=None):

@@ -1,12 +1,12 @@
 """Host-side timestamp helpers (the part of
-``ladcast_tpu/data/time_utils.py`` that the AR dataset and the forecast
-CLI need). Timestamps are YYYYMMDDHH ints; plain datetime and numpy."""
+``ladcast_tpu/data/time_utils.py`` that the port's dataset and CLIs
+need). Timestamps are YYYYMMDDHH ints; plain datetime and numpy."""
 
 from __future__ import annotations
 
 import calendar
 from datetime import datetime, timedelta
-from typing import List, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -76,6 +76,17 @@ def date_str_to_int(s: str) -> int:
     return int(digits)
 
 
+def date_bounds(start_date: Optional[str], end_date: Optional[str],
+                lead_hours: int = 0) -> Tuple[int, int]:
+    """(lo, hi) YYYYMMDDHH bounds from optional date strings; ``hi`` is
+    moved back by ``lead_hours`` so that a forecast started at ``hi`` still
+    verifies inside the range. A missing bound is wide open."""
+    lo = date_str_to_int(start_date) if start_date else 0
+    hi = (add_hours_int(date_str_to_int(end_date), -lead_hours)
+          if end_date else 9_999_999_999)
+    return lo, hi
+
+
 def filter_eval_timestamps_range(start: int, end: int,
                                  num_samples_per_month: int,
                                  hours: Sequence[int] = (0, 12)) -> List[int]:
@@ -96,3 +107,23 @@ def filter_eval_timestamps_range(start: int, end: int,
                     out.append(ts)
         year, month = (year + 1, 1) if month == 12 else (year, month + 1)
     return sorted(out)
+
+
+# The reference dataset's named splits, as year ranges; a year ("2018")
+# selects that year alone.
+SPLIT_YEARS = {"train": (1979, 2017), "validation": (2018, 2018),
+               "test": (2022, 2022), "full": (1979, 2022)}
+
+
+def split_timestamps(timestamps: Sequence[int], split: str) -> np.ndarray:
+    """The YYYYMMDDHH ints of ``timestamps`` inside a split's years."""
+    ts = np.asarray(timestamps, np.int64)
+    if split in SPLIT_YEARS:
+        start, end = SPLIT_YEARS[split]
+    else:
+        start = end = int(split)
+        if not 1979 <= start <= 2100:
+            raise ValueError(f"split {split!r}: a name of {sorted(SPLIT_YEARS)} "
+                             f"or a year")
+    years = ts // 10**6
+    return ts[(years >= start) & (years <= end)]

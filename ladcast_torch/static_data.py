@@ -49,14 +49,28 @@ def era5_mean_std() -> Tuple[np.ndarray, np.ndarray]:
             np.asarray(stds, dtype=np.float32))
 
 
+def _raw_static_stack() -> np.ndarray:
+    """The (5, 120, 240) land-sea mask and orography, south-pole row
+    cropped, unnormalized."""
+    lsm = np.load(_STATIC_DIR / "240x121_land_sea_mask.npy")
+    oro = np.load(_STATIC_DIR / "240x121_orography.npy")
+    return np.concatenate([lsm[None], oro], axis=0).astype(np.float32)[:, 1:, :]
+
+
+def static_mean_std() -> Tuple[np.ndarray, np.ndarray]:
+    """Per-field mean and (ddof=1) std of the 5 static channels over the
+    cropped grid: the z-scoring of :func:`static_conditioning_tensor`, which
+    unnormalizes the DCAE's static reconstruction metrics."""
+    stack = _raw_static_stack()
+    return stack.mean(axis=(1, 2)), stack.std(axis=(1, 2), ddof=1)
+
+
 def static_conditioning_tensor(layout: str = "CHW") -> np.ndarray:
     """The (5, 120, 240) [or HWC] static conditioning stack: land-sea mask
     and 4 orography fields, south-pole row cropped, each z-scored over the
     cropped grid with the unbiased (ddof=1) std, as torch.std computes it
     in the reference."""
-    lsm = np.load(_STATIC_DIR / "240x121_land_sea_mask.npy")
-    oro = np.load(_STATIC_DIR / "240x121_orography.npy")
-    stack = np.concatenate([lsm[None], oro], axis=0).astype(np.float32)[:, 1:, :]
+    stack = _raw_static_stack()
     mean = stack.mean(axis=(1, 2), keepdims=True)
     std = stack.std(axis=(1, 2), keepdims=True, ddof=1)
     stack = (stack - mean) / std

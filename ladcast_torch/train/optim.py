@@ -144,6 +144,12 @@ class AdamW:
             torch._foreach_copy_(dst, [t.to(d.device) for t, d in zip(sd[key], dst)])
 
 
+def decoder_only_mask(name: str) -> bool:
+    """The ``trainable_mask`` of decoder-only finetuning (the reference's
+    --ft_decoder): True for the parameters under a ``decoder`` module."""
+    return "decoder" in name.split(".")
+
+
 def make_optimizer(
     lr: float = 1e-4,
     *,

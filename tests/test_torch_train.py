@@ -381,8 +381,7 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
     base = ["--config", cfg, "--latents", lat, "--device", "cpu",
             "--output_dir", str(tmp_path / "x")]
     for extra, item in ((["--mesh", "data=-1"], "M12"), (["--zero"], "M12"),
-                        (["--reader", "native"], "M13"),
-                        (["--val_every", "2", "--val_latents", lat], "M11")):
+                        (["--reader", "native"], "M13")):
         with pytest.raises(NotImplementedError, match=item):
             t_cli.main(base + extra)
     with pytest.raises(NotImplementedError, match="M13"):
