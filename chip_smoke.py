@@ -11,7 +11,9 @@ ensemble rollout of the bench workload (inference), the AR trainer of the
 375M and the 1.6B DiT, the forecast CLI (hub checkpoints in, latent and
 field files out), and the rest of the user's chain around it (DCAE
 training, latent encoding, statistics and climatology, ensemble scoring,
-the baseline comparison, cyclone tracking, AR training with validation).
+the baseline comparison, cyclone tracking, AR training with validation);
+then the forecast with int8 matmuls, the trainers fed from monthly tars and
+latent shards, and the DCAE with timestep conditioning.
 
   1. environment: the card (nvidia-smi), torch and CUDA versions, and the
      build of the CUDA kernels from ``ladcast_torch/csrc`` (one nvcc per
@@ -79,6 +81,11 @@ the baseline comparison, cyclone tracking, AR training with validation).
   3c. DCAE parity: one encode and one decode of the shipped DCAE at B=2
      under ``CONV_MODE = "kernel"`` (the default) against ``"library"``,
      fp32 and bf16, with the launches of K4 and K5 per call;
+  3d. DCAE with timestep conditioning: the shipped widths with
+     ``temb_channels`` = DCAE_TEMB_CHANNELS at B=4, encode and decode with
+     ``time_elapsed`` under both conv modes, fp32 and bf16, to DCAE_TOL,
+     with the launches of K4 and K5 (the decode without ``time_elapsed``
+     must differ);
   4. main path: ``ladcast_torch.bench.make_bench`` with the 375M DiT and
      the shipped DCAE, seeded bf16 weights: encode, 20 members, Heun-20
      repetitions (39 DiT calls each), decode of every repetition's 80
@@ -131,6 +138,26 @@ the baseline comparison, cyclone tracking, AR training with validation).
      forecast's decoded bundle, and ``train_ar`` for CHAIN_AR_STEPS steps
      with a validation rollout every CHAIN_AR_VAL_EVERY (K1 and K2 in the
      rollouts, K1-lse and K3 in the steps);
+  6c. int8 forecast: ``pred_rollout --int8_matmuls`` as the Heun run of
+     phase 6 without the decode (20 members, Heun-20, 24 h, the same seed):
+     the rollout's seconds against the bf16 run's, the relative L2 of its
+     latents from that run (``INT8_REL_L2``), K1 and K2 launches equal to
+     that run's, one int8 GEMM per quantised projection; then
+     ``torch._int_mm`` at the 375M's four (K, N) pairs at M = 20 x 2250:
+     its int32 product equal to the fp64 product of the same int8 values,
+     timed against bf16 ``torch.matmul`` and its bound at the card's int8
+     rate (``INT8_PEAKS``), and the whole w8a8 function against
+     ``F.linear``;
+  6d. data sources: the chain's 16 raw frames written as monthly tars in
+     the archive's layout ((85, 121, 240) members, a pole row and a
+     surface-pressure channel added), read back bit-equal to the ``.npz``
+     through the C++ reader and through tarfile; the training phases'
+     latents cut into DATA_SHARDS shards plus ``timestamps.npy`` and read
+     back by both readers; host read rates in frames per second beside the
+     host's CPU; ``train_dcae`` from the tar directory (validation split of
+     the same archive) and ``train_ar`` from the shards (``--reader
+     native`` and ``mmap``) against the same runs on the ``.npz``: equal
+     losses, gradient norms and validation losses;
   7. the kernel summary line, the card line and, last, the ok line.
 
 With ``--profile``, one more repetition of the main path runs under
@@ -1729,12 +1756,12 @@ def forecast_phase(tmp):
             ("dpm", ["--end_date", "2018-01-01T12"], 2, 7 * 20))
     for sampler, extra, n_init, n_attn in runs:
         out = os.path.join(tmp, f"out_{sampler}")
-        args = pred_rollout.build_parser().parse_args([
-            "--data", data, "--dit_params", dit_dir, "--dcae_params", dcae_dir,
-            "--output_dir", out, "--start_date", "2018-01-01",
-            "--num_samples_per_month", "1", "--ensemble_size", "20",
-            "--num_inference_steps", "20", "--total_lead_time_hour", "24",
-            "--sampler", sampler, "--seed", "3", *extra])
+        argv = ["--data", data, "--dit_params", dit_dir, "--dcae_params", dcae_dir,
+                "--output_dir", out, "--start_date", "2018-01-01",
+                "--num_samples_per_month", "1", "--ensemble_size", "20",
+                "--num_inference_steps", "20", "--total_lead_time_hour", "24",
+                "--sampler", sampler, "--seed", "3", *extra]
+        args = pred_rollout.build_parser().parse_args(argv)
         _reset_launches(fa)
         _reset_conv_launches()
         torch.cuda.reset_peak_memory_stats()
@@ -1801,6 +1828,7 @@ def forecast_phase(tmp):
         if not ok:
             raise AssertionError(f"forecast, {sampler}: {rec}")
         rec["out_dir"] = out  # the chain phase scores and tracks these files
+        rec["argv"] = argv  # the int8 phase repeats the Heun run
     return results
 
 
@@ -2125,6 +2153,456 @@ def chain_phase(tmp, forecast, device="cuda"):
     return summary
 
 
+# The data-sources phase: DCAE training steps on the chain's frames read
+# from monthly tars, AR training steps on the training phases' latents cut
+# into shards; each against the same run on the .npz.
+DATA_DCAE_STEPS = 2
+DATA_AR_STEPS = 4
+DATA_SHARDS = 3
+# The int8 forecast: relative L2 of its latents (the forecast frames; the
+# encoded t=0 is the bf16 run's) from the bf16 Heun run at the same seed,
+# fixed before its first run on the card (PERF.md, section 6). A wrong
+# scale, a transposed weight or a dropped bias reads about 1.
+INT8_REL_L2 = 0.1
+# (K, N) of the 375M's quantised projections: q/k/v and the attention
+# outputs; the feed-forwards' and proj_mlp's up projections; their down
+# projections; the single-stream proj_out over [attention; mlp]. M is the
+# main path's tokens: 20 members x 2250.
+INT8_GEMM_PAIRS = [(1536, 1536), (1536, 6144), (6144, 1536), (7680, 1536)]
+INT8_GEMM_M = 20 * 2250
+# Dense int8 tensor-core op/s (NVIDIA data sheets), matched on the card's
+# name as PEAKS is; the H100 SXM is the default.
+INT8_PEAKS = [("H100 PCIe", 1513e12), ("H100 NVL", 1671e12), ("H200", 1979e12),
+              ("", 1979e12)]
+# The dcae_temb phase's width: no shipped config sets temb_channels.
+DCAE_TEMB_CHANNELS = 512
+
+
+def host_cpu():
+    """What the host says of its CPU: the first processor's model name,
+    vendor, family, model and clock from /proc/cpuinfo (a virtual machine
+    may report them as unknown), the machine's architecture and the
+    instruction set PyTorch's CPU kernels use."""
+    import platform
+
+    import torch
+
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for ln in f:
+                key, _, value = ln.partition(":")
+                info.setdefault(key.strip().lower(), value.strip())
+    except OSError:
+        pass
+    return {**{k: info.get(k) for k in ("model name", "vendor_id", "cpu family",
+                                         "model", "cpu mhz")},
+            "machine": platform.machine(),
+            "torch_cpu_capability": torch.backends.cpu.get_cpu_capability()}
+
+
+def same_bits(a, b):
+    """Equal shapes, dtypes and bits (NaNs included)."""
+    import numpy as np
+
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and np.array_equal(a.view(np.uint8), b.view(np.uint8)))
+
+
+def frames_per_s(read, n, rounds=3):
+    """``n`` over the median seconds of ``read()``, host clock."""
+    times = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        read()
+        times.append(time.perf_counter() - t0)
+    return n / statistics.median(times)
+
+
+class RawArchiveSource:
+    """The frames of field ``.npz`` bundles as raw monthly-tar members, filed
+    under ``stamps``: a south-pole row in front and a surface-pressure
+    channel behind, (121, 240, 85), which ``TarFieldSource`` crops and drops
+    by default, giving back the bundles' frames."""
+
+    def __init__(self, npz_paths, stamps):
+        import numpy as np
+
+        self.fields = np.concatenate([np.load(p)["fields"] for p in npz_paths])
+        self.stamps = [int(t) for t in stamps]
+
+    def frames_at(self, ts):
+        import numpy as np
+
+        f = self.fields[[self.stamps.index(int(t)) for t in ts]]
+        f = np.concatenate([f[:, :1], f], axis=1)
+        return np.concatenate([f, np.full(f.shape[:-1] + (1,), 101325.0, np.float32)],
+                              axis=-1)
+
+
+class _Warnings:
+    """Collects the warnings logged under a logger while in a with block."""
+
+    def __init__(self, name):
+        import logging
+
+        self.logger, self.messages = logging.getLogger(name), []
+        self.handler = logging.Handler(logging.WARNING)
+        self.handler.emit = lambda r: self.messages.append(r.getMessage())
+
+    def __enter__(self):
+        self.logger.addHandler(self.handler)
+        return self.messages
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+
+
+def data_sources_phase(tmp, dcae_yaml=DCAE_84_YAML, ar_yaml=LADCAST_375M_YAML,
+                       device="cuda"):
+    """The chain's raw frames written as monthly tars in the archive's
+    layout and the training phases' latents cut into shards: the frames
+    read back through the C++ reader and through tarfile against the
+    ``.npz``; host read rates; ``train_dcae`` from the tar directory (its
+    validation split from the same archive) and ``train_ar`` from the shard
+    directory under ``--reader native`` and ``mmap``, each against the
+    same run on the ``.npz``: losses, gradient norms and validation losses
+    must be equal."""
+    import numpy as np
+    import torch
+
+    from ladcast_torch.cli import train_ar, train_dcae
+    from ladcast_torch.data import era5_tar, native_reader
+    from ladcast_torch.data.latent_dataset import ShardedLatentSource
+    from ladcast_torch.ops import flash_attention as fa
+
+    train, val = (os.path.join(tmp, f"chain_{k}.npz") for k in ("train", "val"))
+    with np.load(train) as d, np.load(val) as v:
+        train_ts, val_ts = [int(t) for t in d["timestamps"]], [int(t) for t in v["timestamps"]]
+        want = np.concatenate([d["fields"], v["fields"]])
+    # The training frames are filed a year earlier, under 2017, so that the
+    # archive's default splits (train 1979-2017, validation 2018) part them
+    # from the validation frames as the two bundles do; the DCAE's training
+    # reads no timestamp.
+    stamps = [t - 10**6 for t in train_ts] + val_ts
+    tar_dir = os.path.join(tmp, "era5_tars")
+    t0 = time.perf_counter()
+    era5_tar.write_tar_archive(RawArchiveSource([train, val], stamps), stamps, tar_dir)
+    write_s = time.perf_counter() - t0
+    tars = sorted(os.path.join(tar_dir, f) for f in os.listdir(tar_dir))
+    t0 = time.perf_counter()
+    native_reader.load_library()  # g++ at first use, apart from the index pass
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    members = native_reader.TarNpyMemberSource(tars)
+    index_s = time.perf_counter() - t0
+    member_shape = list(members.frame_shape)
+    members.close()
+    native = era5_tar.TarFieldSource(tar_dir, native=True)
+    plain = era5_tar.TarFieldSource(tar_dir, native=False)
+    rec = {"phase": "data_sources_frames", "frames": len(stamps),
+           "archives": [os.path.basename(t) for t in tars],
+           "member_shape": member_shape,
+           "archive_mb": sum(os.path.getsize(t) for t in tars) / 1e6,
+           "write_s": write_s, "reader_build_s": build_s, "index_s": index_s,
+           "bit_equal": {"native": same_bits(native.frames_at(stamps), want),
+                         "tarfile": same_bits(plain.frames_at(stamps), want)},
+           "host_cpu": host_cpu(), "nproc": os.cpu_count(),
+           "cpus_usable": len(os.sched_getaffinity(0)), "page_cache": "warm"}
+    rec["tar_read_frames_per_s"] = {
+        "native": frames_per_s(lambda: native.frames_at(stamps), len(stamps)),
+        "tarfile": frames_per_s(lambda: plain.frames_at(stamps), len(stamps))}
+    native.close()
+    plain.close()
+
+    # the training phases' latents, cut into shards
+    latents = os.path.join(tmp, "latents.npz")
+    if not os.path.exists(latents):
+        latents = synthetic_latents(tmp)
+    shard_dir = os.path.join(tmp, "latent_shards")
+    os.makedirs(shard_dir)
+    with np.load(latents) as d:
+        lat, lat_ts = d["latents"], d["timestamps"]
+    for i, part in enumerate(np.array_split(np.arange(len(lat)), DATA_SHARDS)):
+        np.save(os.path.join(shard_dir, f"latents_{i:03d}.npy"), lat[part])
+    np.save(os.path.join(shard_dir, "timestamps.npy"), lat_ts)
+    order = np.random.RandomState(0).permutation(len(lat))
+    lat_native = train_ar.load_latent_source(shard_dir, "native")
+    lat_mmap = train_ar.load_latent_source(shard_dir, "mmap")
+    if not (isinstance(lat_native, native_reader.NpyShardSource)
+            and isinstance(lat_mmap, ShardedLatentSource)):
+        raise AssertionError(f"readers: {type(lat_native)}, {type(lat_mmap)}")
+    rec["latent_bit_equal"] = {"native": same_bits(lat_native.frames(order), lat[order]),
+                               "mmap": same_bits(lat_mmap.frames(order), lat[order])}
+    rec["latent_read_frames_per_s"] = {
+        "native": frames_per_s(lambda: lat_native.frames(order), len(order)),
+        "mmap": frames_per_s(lambda: lat_mmap.frames(order), len(order))}
+    rec["latent_frame_kb"] = lat[0].nbytes / 1e3
+    lat_native.close()
+    emit(rec)
+    if not (all(rec["bit_equal"].values()) and all(rec["latent_bit_equal"].values())
+            and rec["member_shape"] == [85, 121, 240] and len(tars) == 2):
+        raise AssertionError(f"data sources, frames: {rec}")
+
+    def keep(res):
+        return {"loss": [h["loss"] for h in res["history"]],
+                "grad_norm": [h["grad_norm"] for h in res["history"]],
+                "step_ms": [h["step_s"] * 1e3 for h in res["history"]],
+                "val_loss": [v["val_loss"] for v in res["validations"]
+                             if "val_loss" in v]}
+
+    # train_dcae on the .npz bundles and on the tar directory; cuDNN's
+    # deterministic algorithms in both, so that equal inputs give equal bits
+    runs, launches = {}, {}
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, argv in (("npz", ["--data", train, "--val_data", val]),
+                           ("tar", ["--data", tar_dir])):
+            out = os.path.join(tmp, f"data_dcae_{name}")
+            _reset_conv_launches()
+            t0 = time.perf_counter()
+            with _Warnings("ladcast_torch.data.era5_tar") as warned:
+                res = train_dcae.run(dcae_yaml, train_dcae.build_parser().parse_args(
+                    [*argv, "--num_steps", str(DATA_DCAE_STEPS), "--output_dir", out,
+                     "--log_every", "1", "--seed", "0", "--device", device]))
+            runs[name] = {**keep(res), "run_wall_s": time.perf_counter() - t0,
+                          "warnings": list(warned)}
+            launches[name] = _conv_launches()
+            forwards = DATA_DCAE_STEPS + len(res["validations"])
+            per_fwd = {k: a + b for (k, a), b in zip(
+                sphere_conv_counts(res["state"].model.encoder).items(),
+                sphere_conv_counts(res["state"].model.decoder).values())}
+            del res
+            shutil.rmtree(out)
+            if device == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    rec = {"phase": "data_sources_train_dcae", "steps": DATA_DCAE_STEPS,
+           "runs": runs, "launches": launches["tar"], "forwards": forwards,
+           "expected_launches": {k: forwards * v for k, v in per_fwd.items()},
+           "equal": {k: runs["npz"][k] == runs["tar"][k]
+                     for k in ("loss", "grad_norm", "val_loss")}}
+    emit(rec)
+    if (not all(rec["equal"].values()) or runs["tar"]["warnings"]
+            or len(runs["tar"]["val_loss"]) != 1 or len(runs["tar"]["loss"]) != DATA_DCAE_STEPS
+            or not all(math.isfinite(x) for x in runs["tar"]["loss"])):
+        raise AssertionError(f"data sources, train_dcae: {rec}")
+    if device == "cuda":
+        check_launches("train_dcae from tars", launches["tar"], rec["expected_launches"])
+    summary = {"train_dcae": rec}
+
+    # train_ar on the .npz and on the shard directory through each reader
+    runs, launches = {}, {}
+    for name, extra in (("npz", [latents]), ("native", [shard_dir, "--reader", "native"]),
+                        ("mmap", [shard_dir, "--reader", "mmap"])):
+        out = os.path.join(tmp, f"data_ar_{name}")
+        _reset_launches(fa)
+        t0 = time.perf_counter()
+        res = train_ar.run(ar_yaml, train_ar.build_parser().parse_args(
+            ["--latents", *extra, "--num_steps", str(DATA_AR_STEPS), "--output_dir", out,
+             "--log_every", "1", "--seed", "0", "--device", device]))
+        runs[name] = {**keep(res), "run_wall_s": time.perf_counter() - t0}
+        launches[name] = _launches(fa)
+        del res
+        shutil.rmtree(out)
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    n = 7 * DATA_AR_STEPS
+    rec = {"phase": "data_sources_train_ar", "steps": DATA_AR_STEPS, "shards": DATA_SHARDS,
+           "runs": runs, "launches": launches["native"],
+           "expected_launches": {k: n for k in launches["native"]},
+           "equal": {r: all(runs[r][k] == runs["npz"][k] for k in ("loss", "grad_norm"))
+                     for r in ("native", "mmap")}}
+    emit(rec)
+    if (not all(rec["equal"].values()) or len(runs["native"]["loss"]) != DATA_AR_STEPS
+            or not all(math.isfinite(x) for x in runs["native"]["loss"])):
+        raise AssertionError(f"data sources, train_ar: {rec}")
+    if device == "cuda":
+        check_launches("train_ar from shards", launches["native"], rec["expected_launches"])
+    summary["train_ar"] = rec
+    return summary
+
+
+def int8_forecast_phase(tmp, forecast, peaks, int8_peak, pairs=INT8_GEMM_PAIRS,
+                        M=INT8_GEMM_M, device="cuda"):
+    """``cli.pred_rollout --int8_matmuls`` on the forecast phase's hub
+    directories, as its Heun run without the decode: the rollout's time
+    against the bf16 run's, the relative L2 of the latents from that run
+    (``INT8_REL_L2``), the launches of K1 and K2 (equal to the bf16 run's)
+    and of the int8 GEMM; then ``torch._int_mm`` at the 375M's (K, N)
+    pairs at M tokens: its int32 product against the exact fp64 product
+    of the same int8 values, and its time against bf16 ``torch.matmul`` at
+    the same shape and against its bound at the card's int8 rate. The
+    forecast runs on ``device`` (a CPU rehearsal skips the launch counts
+    and, with no ``pairs``, the GEMMs)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from ladcast_torch.cli import pred_rollout
+    from ladcast_torch.config import ladcast_375m_config
+    from ladcast_torch.ops import flash_attention as fa
+    from ladcast_torch.ops import quant
+
+    edm = forecast["edm"]
+    out = os.path.join(tmp, "out_int8")
+    argv = [a for a in edm["argv"] if a != "--decode"]
+    args = pred_rollout.build_parser().parse_args(
+        [*argv, "--output_dir", out, "--int8_matmuls"])
+    cuda = device == "cuda"
+    _reset_launches(fa)
+    _reset_conv_launches()
+    quant.int8_mm.launches = 0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    recs = pred_rollout.run(args)
+    wall_s = time.perf_counter() - t0
+    launches = {"norm_rope": fa.norm_rope.launches,
+                "fused_attention": fa.fused_attention.launches,
+                **_conv_launches(), "int8_mm": quant.int8_mm.launches}
+    inits = [r for r in recs if "rollout_s" in r]
+    ts = inits[0]["init_time"]
+    q = np.load(os.path.join(out, f"latent_{ts}.npy"))
+    ref = np.load(os.path.join(edm["out_dir"], f"latent_{ts}.npy"))
+
+    def rel(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    cfg = ladcast_375m_config()
+    calls = 2 * 20 - 1  # Heun-20, one repetition
+    rec = {"phase": "int8_forecast", "sampler": args.sampler,
+           "members": args.ensemble_size, "steps": args.num_inference_steps,
+           "init_times": [r["init_time"] for r in inits],
+           "rollout_s": [r["rollout_s"] for r in inits],
+           "bf16_rollout_s": edm["rollout_s"],
+           "encode_s": [r["encode_s"] for r in inits], "load_s": recs[0]["load_s"],
+           "run_wall_s": wall_s, "launches": launches,
+           "expected_launches": {
+               "norm_rope": edm["launches"]["norm_rope"],
+               "fused_attention": edm["launches"]["fused_attention"],
+               "int8_mm": calls * (12 * cfg.num_layers + 5 * cfg.num_single_layers)},
+           "shape": list(q.shape), "finite": bool(np.isfinite(q).all()),
+           "t0_equal": bool(np.array_equal(q[:, :, 0], ref[:, :, 0])),
+           "rel_l2_to_bf16": rel(q[:, :, 1:], ref[:, :, 1:]), "limit": INT8_REL_L2,
+           # beside it, how far two members of the bf16 run are apart
+           "bf16_member_rel_l2": rel(ref[1, :, 1:], ref[0, :, 1:]),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30 if cuda else None}
+    emit(rec)
+    got = {k: launches[k] for k in rec["expected_launches"]}
+    if (len(inits) != 1 or not rec["finite"] or not rec["t0_equal"]
+            or rec["shape"] != list(ref.shape)
+            or (cuda and got != rec["expected_launches"])
+            or not rec["rel_l2_to_bf16"] <= INT8_REL_L2):
+        raise AssertionError(f"int8 forecast: {rec}")
+
+    # the int8 GEMM at the path's shapes
+    peak_bf16, _, bw, _ = peaks
+    gemms = []
+    g = torch.Generator(device=device).manual_seed(41) if pairs else None
+    for K, N in pairs:
+        xq = torch.randint(-127, 128, (M, K), generator=g, device=device, dtype=torch.int8)
+        wq = torch.randint(-127, 128, (N, K), generator=g, device=device, dtype=torch.int8)
+        acc = quant.int8_mm(xq, wq.t())
+        exact = torch.equal(acc.double(), xq.double() @ wq.double().t())
+        del acc
+        xb, wb = xq.to(torch.bfloat16), wq.to(torch.bfloat16)
+        ws = torch.rand(N, 1, generator=g, device=device) / 127
+        flops = 2 * M * K * N
+        r = {"phase": "int8_gemm", "M": M, "K": K, "N": N, "exact": exact,
+             "int8_ms": time_ms(lambda: torch._int_mm(xq, wq.t())),
+             "bf16_ms": time_ms(lambda: torch.matmul(xb, wb.t())),
+             # the whole w8a8 function as the forecast runs it (weight
+             # quantised once): the activation's quantisation, the product
+             # and the dequantisation, against bf16 F.linear
+             "w8a8_ms": time_ms(lambda: quant.int8_matmul_quantized(
+                 xb, wq, ws, None, torch.bfloat16)),
+             "linear_bf16_ms": time_ms(lambda: F.linear(xb, wb)),
+             **bound(flops, M * K + K * N + 4 * M * N, int8_peak, bw)}
+        bf = bound(flops, 2 * (M * K + K * N + M * N), peak_bf16, bw)
+        r.update(bf16_bound_ms=bf["bound_ms"], bf16_bound_by=bf["bound_by"],
+                 int8_tops=flops / r["int8_ms"] / 1e9,
+                 bound_share=r["bound_ms"] / r["int8_ms"],
+                 int8_over_bf16=r["int8_ms"] / r["bf16_ms"])
+        emit(r)
+        gemms.append(r)
+        del xq, wq, xb, wb
+        torch.cuda.empty_cache()
+        if not exact:
+            raise AssertionError(f"int8 GEMM not exact: {r}")
+    return {"forecast": rec, "gemms": gemms}
+
+
+def dcae_temb_phase(cfg=None, device="cuda"):
+    """The shipped DCAE's widths with timestep conditioning
+    (``temb_channels`` = DCAE_TEMB_CHANNELS) at B=4: encode and decode with
+    ``time_elapsed`` under ``CONV_MODE = "kernel"`` against ``"library"``,
+    fp32 and bf16, to DCAE_TOL, with the launches of K4 and K5 (a CPU
+    rehearsal with a small ``cfg`` skips the launch counts)."""
+    import torch
+
+    from ladcast_torch.config import DCAEConfig
+    from ladcast_torch.models.dcae import build_dcae
+
+    dev = torch.device(device)
+    cfg = cfg or dataclasses.replace(DCAEConfig(), temb_channels=DCAE_TEMB_CHANNELS)
+    g = torch.Generator(device=dev).manual_seed(12)
+    r = cfg.spatial_compression_ratio
+    fields = torch.randn(4, 120, 240, cfg.in_channels - cfg.static_channels,
+                         generator=g, device=dev)
+    static = torch.randn(120, 240, cfg.static_channels, generator=g, device=dev)
+    z = torch.randn(4, 120 // r, 240 // r, cfg.latent_channels, generator=g, device=dev)
+    t = torch.tensor([0.0, 6.0, 24.0, 240.0], device=dev)
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        dcae = build_dcae(cfg, dev, dtype, seed=13)
+        expected = {"encode": sphere_conv_counts(dcae.encoder),
+                    "decode": sphere_conv_counts(dcae.decoder)}
+        outs, launches = {}, {}
+        with torch.inference_mode():
+            for mode in ("kernel", "library"):
+                with conv_mode(mode):
+                    for stage, fn in (
+                            ("encode", lambda: dcae.encode(fields.to(dtype), static.to(dtype),
+                                                           time_elapsed=t)),
+                            ("decode", lambda: dcae.decode(z.to(dtype), time_elapsed=t))):
+                        _reset_conv_launches()
+                        outs[mode, stage] = fn().float()
+                        launches[mode, stage] = _conv_launches()
+            untimed = dcae.decode(z.to(dtype)).float()  # no time_elapsed
+        rec = {"phase": "dcae_temb", "dtype": dname, "B": 4,
+               "temb_channels": cfg.temb_channels, "tol": DCAE_TOL[dname],
+               "parameters": sum(p.numel() for p in dcae.parameters()),
+               "expected_launches": expected}
+        ok = True
+        for stage in ("encode", "decode"):
+            a, b = outs["kernel", stage], outs["library", stage]
+            rec[stage] = {"rel_l2": ((a - b).norm() / b.norm()).item(),
+                          "max_abs_err": (a - b).abs().max().item(),
+                          "finite": bool(torch.isfinite(a).all()),
+                          "launches": launches["kernel", stage]}
+            ok &= (rec[stage]["finite"] and rec[stage]["rel_l2"] <= DCAE_TOL[dname]
+                   and (dev.type != "cuda" or launches["kernel", stage] == expected[stage])
+                   and not any(launches["library", stage].values()))
+        # the conditioning acts: the decode without it is another function
+        d = outs["kernel", "decode"]
+        rec["untimed_decode_rel_l2"] = ((untimed - d).norm() / d.norm()).item()
+        ok &= rec["untimed_decode_rel_l2"] > 10 * DCAE_TOL[dname]
+        emit(rec)
+        if not ok:
+            raise AssertionError(f"DCAE with temb, {dname}: {rec}")
+        results[dname] = rec
+        del dcae, outs, untimed
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return results
+
+
 # kernel-name fragments -> category, first match wins: every kernel of
 # ladcast_torch/csrc is named before "gemm", whose "wgmma" would take a
 # kernel that issues wgmma (tests/test_torch_rules.py holds this)
@@ -2224,6 +2702,7 @@ def main():
     card = nvidia_smi_line()
     name = torch.cuda.get_device_name(0)
     peaks = next(p[1:] for p in PEAKS if p[0] in name)
+    int8_peak = next(p[1] for p in INT8_PEAKS if p[0] in name)
     t0 = time.perf_counter()
     libs = _build.build_all()
     emit({"phase": "environment", "nvidia_smi": card, "device": name,
@@ -2231,7 +2710,8 @@ def main():
           "python": sys.version.split()[0], "build_s": time.perf_counter() - t0,
           "libraries": sorted(p.name for p in libs.values()),
           "peaks": {"bf16_flops": peaks[0], "fp32_flops": peaks[1],
-                    "bytes_per_s": peaks[2], "tf32_flops": peaks[3]}})
+                    "bytes_per_s": peaks[2], "tf32_flops": peaks[3],
+                    "int8_ops": int8_peak}})
     # the kernels' registers, spills and SASS; the Hopper kernels must have
     # no mma.sync, no spills and no note of ptxas's (a serialised wgmma)
     reports = {}
@@ -2286,6 +2766,9 @@ def main():
     t0 = time.perf_counter()
     dcae_parity_phase()
     emit({"phase": "dcae_parity_done", "wall_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    temb = dcae_temb_phase()
+    emit({"phase": "dcae_temb_done", "wall_s": time.perf_counter() - t0})
     launches, bench = main_path_phase(args.reps)
     if args.profile:
         profile_phase("inference", lambda: bench["full_forecast"](6))
@@ -2306,6 +2789,12 @@ def main():
         t0 = time.perf_counter()
         chain = chain_phase(tmp, forecast)
         emit({"phase": "chain_done", "wall_s": time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        int8 = int8_forecast_phase(tmp, forecast, peaks, int8_peak)
+        emit({"phase": "int8_forecast_done", "wall_s": time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        data = data_sources_phase(tmp)
+        emit({"phase": "data_sources_done", "wall_s": time.perf_counter() - t0})
     forecast_launches = forecast["edm"]["launches"]
 
     src = "ladcast_tpu/ops/pallas/flash_attention.py"
@@ -2346,10 +2835,14 @@ def main():
         e["forecast_launches"] = forecast_launches[kname]
         # the chain's AR trainer: its steps and validation rollouts
         e["chain_train_ar_launches"] = chain["train_ar"]["launches"][kname]
+        # the int8 forecast (Heun, no decode) and the AR trainer on shards
+        e["int8_forecast_launches"] = int8["forecast"]["launches"][kname]
+        e["data_sources_train_ar_launches"] = data["train_ar"]["launches"][kname]
         summary.append(e)
     e = entry("fused_attention_lse", results["fused_attention_lse"],
               train_launches["fused_attention_lse"])
     e["batch"] = 4
+    e["data_sources_train_ar_launches"] = data["train_ar"]["launches"]["fused_attention_lse"]
     summary.append(e)
     pair = next(r for r in results["flash_bwd_pair"] if r["case"] == "dual_2250"
                 and r["dtype"] == "bfloat16")
@@ -2363,6 +2856,7 @@ def main():
                    and r["dtype"] == "bfloat16")
         e["dual_2250_h16"] = {k: h16[k] for k in ("ms", "plain_ms", "library_ms",
                                                   "bound_ms", "tflops", "bound_share")}
+        e["data_sources_train_ar_launches"] = data["train_ar"]["launches"][kname]
         summary.append(e)
     for kname in ("dense_conv", "depthwise_conv"):
         case, batch = KERNEL_LINE_CASES[kname]
@@ -2376,6 +2870,13 @@ def main():
             "train_dcae_per_step": td["launches"][kname] // td["forwards"],
             "evaluate_ens_per_init_time":
                 ev["launches"][kname] // len(ev["init_times"])}
+        # the DCAE trained from tars (per run: its steps and one validation
+        # batch), the temb DCAE's bf16 encode and decode at B=4, the int8
+        # forecast's encode
+        e["data_sources_train_dcae_launches"] = data["train_dcae"]["launches"][kname]
+        e["dcae_temb_launches"] = {stage: temb["bfloat16"][stage]["launches"][kname]
+                                   for stage in ("encode", "decode")}
+        e["int8_forecast_launches"] = int8["forecast"]["launches"][kname]
         sc = next(r for r in scoring[kname]
                   if r["case"] == KERNEL_LINE_CASES[kname][0])
         e["fp32_scoring"] = {k: sc[k] for k in ("case", "B", "ms", "plain_ms",

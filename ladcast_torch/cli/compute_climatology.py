@@ -8,7 +8,7 @@ Writes ``clim.npz`` with ``clim`` (366, n_hours, lat, lon, C), the mean of
 the frames in each (day of year, hour) bin accumulated in fp64 one batch at
 a time (empty bins 0; ``metrics.climatology.accumulate_climatology``), and
 ``hours``: what ``cli.evaluate_ens --climatology`` reads. The field source
-is an ``.npz`` bundle. At the 120 x 240 x 84 grid with four hours, ``clim``
+is an ``.npz`` bundle or a directory of monthly tars. At the 120 x 240 x 84 grid with four hours, ``clim``
 holds 3.54e9 values: a 14.2 GB file, and 42.5 GB of host memory at the
 peak (the fp64 sums and the float32 result).
 """
@@ -25,7 +25,8 @@ from ladcast_torch.metrics.climatology import accumulate_climatology
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--data", required=True, help="ERA5 .npz bundle")
+    ap.add_argument("--data", required=True,
+                    help="ERA5 .npz bundle or directory of monthly tars")
     ap.add_argument("--output", required=True, help="output .npz path")
     ap.add_argument("--start_year", type=int, default=None)
     ap.add_argument("--end_year", type=int, default=None)

@@ -7,7 +7,7 @@ ERA5 archive over a year range, as JSON (the port of
 
 One pass in fp64 (sums and sums of squares, NaNs skipped), in the layout of
 the bundled ``ERA5_normal_1979_2017.json``. The source is an ``.npz``
-bundle.
+bundle or a directory of monthly tars (``cli.pred_rollout.open_field_source``).
 """
 
 from __future__ import annotations
@@ -22,7 +22,8 @@ from ladcast_torch import channels as ch
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--data", required=True)
+    ap.add_argument("--data", required=True,
+                    help="ERA5 .npz bundle or directory of monthly tars")
     ap.add_argument("--output", required=True)
     ap.add_argument("--start_year", type=int, default=1979)
     ap.add_argument("--end_year", type=int, default=2017)

@@ -29,7 +29,8 @@ from ladcast_torch.models import hub
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--data", required=True, help="ERA5 .npz bundle")
+    ap.add_argument("--data", required=True,
+                    help="ERA5 .npz bundle or directory of monthly tars")
     ap.add_argument("--dcae_params", required=True)
     ap.add_argument("--output", required=True, help=".npz path")
     ap.add_argument("--batch_size", type=int, default=32)
@@ -50,7 +51,7 @@ def run(args: argparse.Namespace) -> dict:
     if not args.output.endswith(".npz"):
         raise NotImplementedError(
             f"--output {args.output}: only .npz outputs are ported; zarr "
-            f"waits for ROADMAP.md Queue 1 item M13 (data)")
+            f"waits for ROADMAP.md Queue 1 item M13 (part c, xarray)")
     device = resolve_device(args.device)
     from ladcast_torch.cli.pred_rollout import _load_any_params, open_field_source
 

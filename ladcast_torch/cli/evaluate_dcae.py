@@ -30,7 +30,8 @@ from ladcast_torch.models import hub
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--data", required=True, help="ERA5 .npz bundle")
+    ap.add_argument("--data", required=True,
+                    help="ERA5 .npz bundle or directory of monthly tars")
     ap.add_argument("--dcae_params", required=True)
     ap.add_argument("--output_csv", required=True)
     ap.add_argument("--batch_size", type=int, default=8)

@@ -15,7 +15,7 @@ and the merged ``<key>.npy`` (init times, C, T, ...), then
 (truth NaNs over land).
 
 Truth: an ``.npz`` bundle (``fields`` (time, lat, lon, 84) raw,
-``timestamps``). Climatology: ``clim.npz`` of ``cli.compute_climatology``.
+``timestamps``) or a directory of monthly tars (``data.era5_tar``). Climatology: ``clim.npz`` of ``cli.compute_climatology``.
 """
 
 from __future__ import annotations
@@ -175,7 +175,8 @@ def filter_latent_files(files, start_date=None, end_date=None,
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--latent_dir", required=True)
-    ap.add_argument("--truth", required=True, help="ERA5 .npz bundle")
+    ap.add_argument("--truth", required=True,
+                    help="ERA5 .npz bundle or directory of monthly tars")
     ap.add_argument("--climatology", default=None,
                     help=".npz with key 'clim' (366, 4, lat, lon, C): day of "
                          "year - 1, hour // 6 (cli.compute_climatology)")

@@ -14,7 +14,11 @@ encoded analysis), and with ``--decode`` ``fields_<ts>.npz``, the decoded
 fields in physical units with their coordinates.
 
 ERA5 input: an ``.npz`` bundle with ``fields`` (time, lat, lon, 84), raw,
-and ``timestamps`` (YYYYMMDDHH ints).
+and ``timestamps`` (YYYYMMDDHH ints), or a directory of monthly tars
+(``YYYY_MM.tar`` of hourly (85, 121, 240) ``.npy`` members,
+``data.era5_tar``). ``--int8_matmuls`` runs the DiT's transformer-block
+matmuls as dynamic w8a8 int8 products (``ops.quant``): an opt-in
+approximation of the exact forecast.
 
 :func:`main` parses the arguments; :func:`run` forecasts from parsed
 arguments and returns one record per init time.
@@ -23,6 +27,7 @@ arguments and returns one record per init time.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
@@ -59,13 +64,19 @@ class NpzFieldSource:
 
 
 def open_field_source(path: str, split: str = None):
-    """(source, timestamps int64) of an ERA5 field source; ``split`` keeps
-    a named split's years (``data.time_utils.split_timestamps``). Only
-    ``.npz`` bundles are ported."""
+    """(source, timestamps int64) of an ERA5 field source: an ``.npz``
+    bundle, or a directory of monthly tars (``data.era5_tar``; its
+    timestamps in archive order). ``split`` keeps a named split's years
+    (train 1979-2017, validation 2018, test 2022, full, or a year)."""
+    if os.path.isdir(path):
+        from ladcast_torch.data import era5_tar
+
+        return (era5_tar.TarFieldSource(path),
+                era5_tar.available_timestamps(path, split or "full"))
     if not path.endswith(".npz"):
         raise NotImplementedError(
-            f"{path}: only .npz bundles are ported; zarr stores and tar "
-            f"directories wait for ROADMAP.md Queue 1 item M13 (data)")
+            f"{path}: .npz bundles and tar directories are ported; zarr "
+            f"stores wait for ROADMAP.md Queue 1 item M13 (part c, xarray)")
     src = NpzFieldSource(path)
     ts = np.asarray(src.timestamps, np.int64)
     if split:
@@ -75,7 +86,8 @@ def open_field_source(path: str, split: str = None):
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--data", required=True, help="ERA5 .npz bundle")
+    ap.add_argument("--data", required=True,
+                    help="ERA5 .npz bundle or directory of monthly tars")
     ap.add_argument("--dit_params", required=True,
                     help="a diffusers model or training-checkpoint directory "
                          "(config taken from its config.json), a "
@@ -116,20 +128,21 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--decode", dest="save_as_latent", action="store_false")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
-    # flags of the JAX CLI whose modules are not ported yet
-    ap.add_argument("--int8_matmuls", action="store_true")
+    ap.add_argument("--int8_matmuls", action="store_true",
+                    help="approximate: dynamic w8a8 int8 matmuls in the DiT's "
+                         "transformer blocks (ops/quant.py); validate skill "
+                         "before production use")
+    # a flag of the JAX CLI whose module is not ported yet
     ap.add_argument("--shard_ensemble", action="store_true")
     return ap
 
 
 _NOT_PORTED = [
-    (lambda a: a.int8_matmuls,
-     "--int8_matmuls: ops/quant.py waits for ROADMAP.md Queue 1 item M8"),
     (lambda a: a.shard_ensemble,
      "--shard_ensemble: parallelism waits for ROADMAP.md Queue 1 item M12"),
-    (lambda a: not a.data.endswith(".npz"),
-     "--data: only .npz bundles are ported; zarr stores and tar directories "
-     "wait for ROADMAP.md Queue 1 item M13 (data)"),
+    (lambda a: not (a.data.endswith(".npz") or os.path.isdir(a.data)),
+     "--data: .npz bundles and tar directories are ported; zarr stores wait "
+     "for ROADMAP.md Queue 1 item M13 (part c, xarray)"),
 ]
 
 
@@ -215,6 +228,8 @@ def run(args: argparse.Namespace, compute_dtype: str = "bfloat16") -> list:
         args.dit_params, "dit", dit_cfg, args.dit_subfolder)
     dcae_params, dcae_cfg = _load_any_params(
         args.dcae_params, "dcae", DCAEConfig(), args.dcae_subfolder)
+    if args.int8_matmuls:
+        dit_cfg = dataclasses.replace(dit_cfg, int8_matmuls=True)
     pipe = ForecastPipeline(dit_cfg, dcae_cfg, EDMSchedulerConfig(), rcfg,
                             dit_params, dcae_params,
                             compute_dtype=compute_dtype,
@@ -223,7 +238,12 @@ def run(args: argparse.Namespace, compute_dtype: str = "bfloat16") -> list:
     records = [{"loaded": True, "load_s": sync() - t0}]
     print(json.dumps(records[0]), flush=True)
 
-    source = NpzFieldSource(args.data)
+    # the init times' year, where there is one, bounds a tar directory's
+    # index pass (frames_at reads any month of the archive)
+    years = ({args.start_date[:4], args.end_date[:4]} if args.start_date
+             else {str(args.year)})
+    one_year = len(years) == 1 and os.path.isdir(args.data)
+    source, _ = open_field_source(args.data, years.pop() if one_year else None)
     if args.start_date:
         init_times = time_utils.filter_eval_timestamps_range(
             time_utils.date_str_to_int(args.start_date),
@@ -242,7 +262,7 @@ def run(args: argparse.Namespace, compute_dtype: str = "bfloat16") -> list:
                     for i in range(args.input_seq_len - 1, -1, -1)]
         try:
             raw = source.frames_at(input_ts)  # (T_in, lat, lon, 84)
-        except (KeyError, ValueError) as e:
+        except (KeyError, ValueError, FileNotFoundError) as e:
             records.append({"init_time": ts, "skipped": str(e)[:120]})
             print(json.dumps(records[-1]), flush=True)
             continue

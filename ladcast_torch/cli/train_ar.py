@@ -3,9 +3,11 @@
     python -m ladcast_torch.cli.train_ar --config configs/ladcast_375m.yaml \\
         --latents latents.npz [--num_steps N] [--resume latest] [--device cpu]
 
-Trains the DiT of the config's ``ar_model`` on ``.npz`` latents
-(``latents`` (time, h, w, C), ``timestamps`` (time,) YYYYMMDDHH) on one
-device: CUDA unless ``--device cpu`` is given. fp32 master weights with
+Trains the DiT of the config's ``ar_model`` on latents (an ``.npz`` with
+``latents`` (time, h, w, C) and ``timestamps`` (time,) YYYYMMDDHH, or a
+directory of ``.npy`` shards (time, h, w, C) in name order plus
+``timestamps.npy``, read through ``--reader``) on one device: CUDA unless
+``--device cpu`` is given. fp32 master weights with
 ``--compute_dtype`` compute, AdamW with global-norm clip 1.0 and the
 config's LR schedule, EMA, torch checkpoints with rotation under
 ``<output_dir>/ckpts``, and one JSON line per logged step in
@@ -36,6 +38,7 @@ from ladcast_torch.data.latent_dataset import (
     ARLatentDataset,
     ARWindowConfig,
     ArrayLatentSource,
+    ShardedLatentSource,
     batch_iterator,
 )
 from ladcast_torch.train import checkpoint as ckpt
@@ -45,14 +48,36 @@ from ladcast_torch.utils.logging_utils import MetricLogger
 from ladcast_torch.utils.profiling import PhaseTimer
 
 
-def load_latent_source(path: str) -> ArrayLatentSource:
-    """An ``.npz`` of latents; the other layouts are not ported."""
-    if not path.endswith(".npz"):
-        raise NotImplementedError(
-            f"{path}: only .npz latents are ported; shard directories and "
-            f"zarr sources wait for ROADMAP.md Queue 1 item M13 (data)")
-    d = np.load(path)
-    return ArrayLatentSource(d["latents"], d["timestamps"])
+def load_latent_source(path: str, reader: str = "auto"):
+    """A latent source: an ``.npz`` in memory, or a directory of ``.npy``
+    shards with ``timestamps.npy``, read by the C++ pread pool
+    (``reader="native"``, which raises where the library cannot be built),
+    by numpy mmap (``"mmap"``), or by the former where it builds and else,
+    with one printed line, the latter (``"auto"``)."""
+    if reader not in ("auto", "native", "mmap"):
+        raise ValueError(f"reader {reader!r}: expected auto, native or mmap")
+    if path.endswith(".npz"):
+        d = np.load(path)
+        return ArrayLatentSource(d["latents"], d["timestamps"])
+    if os.path.isdir(path) and os.path.exists(os.path.join(path, "timestamps.npy")):
+        ts = np.load(os.path.join(path, "timestamps.npy"))
+        shards = sorted(os.path.join(path, f) for f in os.listdir(path)
+                        if f.endswith(".npy") and f != "timestamps.npy")
+        if reader != "mmap":
+            from ladcast_torch.data.native_reader import NpyShardSource
+
+            try:
+                return NpyShardSource(shards, ts)
+            except (OSError, RuntimeError) as e:
+                if reader == "native":
+                    raise
+                print(f"native reader unavailable ({e}); falling back to "
+                      f"numpy mmap", flush=True)
+        return ShardedLatentSource(shards, ts)
+    raise NotImplementedError(
+        f"{path}: .npz latents and shard directories (*.npy + timestamps.npy) "
+        f"are ported; zarr sources wait for ROADMAP.md Queue 1 item M13 "
+        f"(part c, xarray)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -97,17 +122,16 @@ def build_parser() -> argparse.ArgumentParser:
                          "checkpoint directory): decode the validation "
                          "ensemble and log per-variable physical RMSE and "
                          "CRPS tables by lead time; omit for latent-only")
-    # flags of the JAX CLI whose modules are not ported yet
-    ap.add_argument("--reader", default="auto", choices=["auto", "native", "mmap"])
+    ap.add_argument("--reader", default="auto", choices=["auto", "native", "mmap"],
+                    help="the reader of a shard directory: native (the C++ "
+                         "pread pool), mmap (numpy), auto (native, else mmap)")
+    # flags of the JAX CLI whose module is not ported yet
     ap.add_argument("--mesh", default=None)
     ap.add_argument("--zero", action=argparse.BooleanOptionalAction, default=None)
     return ap
 
 
 _NOT_PORTED = [
-    (lambda a: a.reader == "native",
-     "--reader native: the C++ shard reader waits for ROADMAP.md Queue 1 "
-     "item M13 (data)"),
     (lambda a: a.mesh or a.zero,
      "--mesh / --zero: parallelism waits for ROADMAP.md Queue 1 item M12"),
 ]
@@ -172,7 +196,7 @@ def make_validation(args, sched_cfg, wcfg, tcfg, cfg, device):
         num_inference_steps=args.val_num_inference_steps,
         total_lead_time_hour=args.val_total_lead_time_hour, step_size_hour=6)
     val_ds = ARLatentDataset(
-        load_latent_source(args.val_latents),
+        load_latent_source(args.val_latents, args.reader),
         ARWindowConfig(wcfg.input_seq_len, rcfg.total_num_steps,
                        wcfg.interval_between_pred, 1),
         mean=lm, std=ls, target_std=0.5)
@@ -252,8 +276,12 @@ def run(cfg: dict, args: argparse.Namespace) -> dict:
         if unsupported(args):
             raise NotImplementedError(msg)
     _check_parallel(cfg.get("parallel") or {})
-    device = resolve_device(args.device)
     model_cfg = config_from_dict(LaDCastDiTConfig, cfg.get("ar_model", {}))
+    if model_cfg.int8_matmuls:
+        raise SystemExit("int8_matmuls is an inference-only path (the int8 "
+                         "round and cast are not differentiable); remove it "
+                         "from the ar_model training config")
+    device = resolve_device(args.device)
     sched_cfg = config_from_dict(EDMSchedulerConfig,
                                  cfg.get("noise_scheduler", {}).get("params", {}))
     ns_cfg = config_from_dict(NoiseSamplerConfig, cfg.get("noise_sampler", {}))
@@ -298,7 +326,7 @@ def run(cfg: dict, args: argparse.Namespace) -> dict:
                                              tcfg, optimizer, device)
 
     lm, ls = static_data.latent_mean_std()
-    source = load_latent_source(args.latents or dl_cfg.get("ds_path"))
+    source = load_latent_source(args.latents or dl_cfg.get("ds_path"), args.reader)
     wcfg = ARWindowConfig(
         input_seq_len=dl_cfg.get("input_seq_len", 1),
         return_seq_len=dl_cfg.get("return_seq_len", 4),

@@ -6,10 +6,14 @@
         [--resume latest | --init_weights <dir>] [--device cpu]
 
 Trains the config's ``encdec`` autoencoder on one device (CUDA unless
-``--device cpu`` is given) from an ``.npz`` bundle of raw fields: each batch
-of ``train.batch_size`` random frames is normalized and SST-masked on the
-host and then serves ``train.subbatch_steps`` optimizer steps (the first
-unrolled, the others periodic-rolled; ``train.trainer_dcae``). With
+``--device cpu`` is given) from raw fields in an ``.npz`` bundle or a
+directory of monthly tars (``data.era5_tar``). A tar directory gives its
+``train`` split (1979-2017) unless ``--split`` says otherwise and, without
+``--val_data``, validates on its ``--val_split`` (2018), as the reference
+does with one archive. Each batch of ``train.batch_size`` random frames
+is normalized and SST-masked on the host and then serves
+``train.subbatch_steps`` optimizer steps (the first unrolled, the others
+periodic-rolled; ``train.trainer_dcae``). With
 ``train.ft_decoder_only`` the encoder is frozen (decoder finetuning, from
 ``--init_weights``). Outputs under ``--output_dir``: ``metrics.jsonl``,
 ``config.json``, ``ckpts/step_*.pt`` (the whole state, for ``--resume``)
@@ -46,7 +50,8 @@ BEST_KEPT = 3  # best-validation weight directories kept
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", default=None, help="YAML config (main only)")
-    ap.add_argument("--data", required=True, help="ERA5 .npz bundle")
+    ap.add_argument("--data", required=True,
+                    help="ERA5 .npz bundle or directory of monthly tars")
     ap.add_argument("--output_dir", default=None)
     ap.add_argument("--num_steps", type=int, default=None)
     ap.add_argument("--resume", default=None, help="'latest' or a step")
@@ -58,15 +63,18 @@ def build_parser() -> argparse.ArgumentParser:
                          "--resume is given")
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--val_data", default=None,
-                    help="held-out ERA5 .npz bundle for validation")
+                    help="held-out ERA5 .npz bundle or tar directory for "
+                         "validation")
     ap.add_argument("--val_every", type=int, default=None,
                     help="validation interval in steps (default: "
                          "general.val_every_steps or 1000)")
     ap.add_argument("--split", default=None,
                     help="keep only a split's years of --data (train, "
-                         "validation, test, full or a year)")
+                         "validation, test, full or a year); default: train "
+                         "for a tar directory, every frame of an .npz")
     ap.add_argument("--val_split", default="validation",
-                    help="the split of --val_data")
+                    help="the split of --val_data or, without it, of a tar "
+                         "directory --data")
     ap.add_argument("--log_every", type=int, default=50,
                     help="log every N steps (and the first)")
     ap.add_argument("--device", default="cuda")
@@ -114,7 +122,10 @@ def run(cfg: dict, args: argparse.Namespace) -> dict:
     init_fn, train_step, eval_step = make_dcae_train_step(
         dcae_cfg, tcfg, optimizer, device)
 
-    src, all_ts = open_field_source(args.data, split=args.split)
+    split = args.split or ("train" if os.path.isdir(args.data) else None)
+    src, all_ts = open_field_source(args.data, split=split)
+    if len(all_ts) == 0:
+        raise SystemExit(f"{args.data}: no frames in split {split!r}")
     fm, fs = static_data.era5_mean_std()
     statics = torch.from_numpy(
         static_data.static_conditioning_tensor(layout="HWC")).to(device)
@@ -148,6 +159,12 @@ def run(cfg: dict, args: argparse.Namespace) -> dict:
     val_src = None
     if args.val_data:
         val_src, val_ts = open_field_source(args.val_data, split=args.val_split)
+    elif args.val_split and os.path.isdir(args.data):
+        # the validation split of the training archive itself
+        from ladcast_torch.data.era5_tar import available_timestamps
+
+        val_ts = available_timestamps(args.data, args.val_split)
+        val_src = src if len(val_ts) else None
     if val_src is not None:
         val_every = args.val_every or gen_cfg.get("val_every_steps", 1000)
         _, ss = static_data.static_mean_std()

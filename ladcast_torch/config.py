@@ -82,6 +82,8 @@ class LaDCastDiTConfig:
     PyTorch composite everywhere (the reference the kernels are held to).
     ``remat``: per-block gradient checkpointing of the dual- and
     single-stream blocks (training only; no effect without grad).
+    ``int8_matmuls``: the transformer blocks' projections as dynamic w8a8
+    int8 products (``ops.quant``; inference only, approximate).
     """
 
     in_channels: int = 84
@@ -122,9 +124,6 @@ class LaDCastDiTConfig:
         if self.attention_impl not in ("auto", "plain"):
             raise ValueError(f"attention_impl {self.attention_impl!r}: "
                              f"expected 'auto' or 'plain'")
-        if self.int8_matmuls:
-            raise NotImplementedError(
-                "int8 w8a8 matmuls are not ported to PyTorch yet")
 
     @property
     def inner_dim(self) -> int:

@@ -1,11 +1,16 @@
 """AR training dataset over pre-encoded latents (the port of
-``ladcast_tpu/data/latent_dataset.py``'s in-memory path).
+``ladcast_tpu/data/latent_dataset.py``, its xarray source aside).
 
 Items are (input frames (T_in, h, w, C), target frames (T_out, h, w, C),
 timestamp YYYYMMDDHH of the first input frame), with strided time sampling
 (``sampling_interval``) applied first, then a window of total extent
 (T_in + T_out - 1) * interval_between_pred + 1. :func:`batch_iterator`
 prefetches numpy batches on a host thread, in a seeded order per epoch.
+
+Sources: :class:`ArrayLatentSource` (an array in memory),
+:class:`ShardedLatentSource` (mmap'd ``.npy`` shards) and
+``native_reader.NpyShardSource`` (the same shards through the C++ pread
+pool, with a page-cache readahead that the iterator drives).
 """
 
 from __future__ import annotations
@@ -35,6 +40,48 @@ class ArrayLatentSource:
 
     def frames(self, idx: np.ndarray) -> np.ndarray:
         return self.latents[idx]
+
+    def timestamp(self, idx: int) -> int:
+        return int(self.timestamps[idx])
+
+
+class ShardedLatentSource:
+    """Latents over mmap'd ``.npy`` shards, each (time, h, w, C), with the
+    timestamps of all shards in order: :meth:`frames` copies only the rows
+    asked for, so an archive larger than host RAM streams."""
+
+    def __init__(self, paths: Sequence[str], timestamps: Sequence[int]):
+        if not paths:
+            raise ValueError("no shards")
+        self._arrs = [np.load(p, mmap_mode="r") for p in paths]
+        tail, dtype = self._arrs[0].shape[1:], self._arrs[0].dtype
+        for p, a in zip(paths, self._arrs):
+            if a.ndim != 4 or a.shape[1:] != tail or a.dtype != dtype:
+                raise ValueError(f"shard {p}: layout {a.shape} {a.dtype} differs "
+                                 f"from (*, {tail}) {dtype}")
+        # _starts[s]: the global index of shard s's first frame
+        self._starts = np.concatenate(
+            [[0], np.cumsum([a.shape[0] for a in self._arrs])]).astype(np.int64)
+        if self._starts[-1] != len(timestamps):
+            raise ValueError(f"{self._starts[-1]} frames in the shards, "
+                             f"{len(timestamps)} timestamps")
+        self.frame_shape = tuple(tail)
+        self.dtype = dtype
+        self.timestamps = np.asarray(timestamps, np.int64)
+
+    def __len__(self):
+        return int(self._starts[-1])
+
+    def frames(self, idx) -> np.ndarray:
+        idx = np.atleast_1d(np.asarray(idx, np.int64))
+        if idx.size and (idx.min() < 0 or idx.max() >= len(self)):
+            raise IndexError(f"frame index out of [0, {len(self)})")
+        out = np.empty((idx.size, *self.frame_shape), self.dtype)
+        shard = np.searchsorted(self._starts, idx, side="right") - 1
+        for s in np.unique(shard):
+            m = shard == s
+            out[m] = self._arrs[s][idx[m] - self._starts[s]]
+        return out
 
     def timestamp(self, idx: int) -> int:
         return int(self.timestamps[idx])
@@ -93,6 +140,19 @@ class ARLatentDataset:
         out = self._transform(self.source.frames(out_idx).astype(np.float32))
         return inp, out, self.source.timestamp(int(in_idx[0]))
 
+    def prefetch(self, item_idxs) -> None:
+        """Ask the source to read ahead the frames of these items (a no-op
+        for a source without ``prefetch``, such as one in memory)."""
+        pf = getattr(self.source, "prefetch", None)
+        if pf is None:
+            return
+        frames = []
+        for i in item_idxs:
+            in_idx, out_idx = self._window_idx(int(i))
+            frames.extend(in_idx.tolist())
+            frames.extend(out_idx.tolist())
+        pf(np.unique(np.asarray(frames, np.int64)))
+
 
 def batch_iterator(
     dataset: ARLatentDataset,
@@ -106,7 +166,9 @@ def batch_iterator(
     numpy batches, year_progress (B, num_push_forward_steps) float32: the
     year progress of t0 + 6 h * s for each push-forward chunk s. Two
     batches are read ahead on a thread, which has stopped when closing the
-    generator returns; an error there is raised here."""
+    generator returns; an error there is raised here. Before it reads a
+    batch, the thread asks ``dataset.prefetch`` (where the dataset has one)
+    for the next batch's frames."""
     q: queue_mod.Queue = queue_mod.Queue(maxsize=2)
     stop = threading.Event()
 
@@ -123,7 +185,11 @@ def batch_iterator(
         rng = np.random.RandomState(seed)
         order = rng.permutation(len(dataset)) if shuffle \
             else np.arange(len(dataset))
-        for s in range(0, len(order) - batch_size + 1, batch_size):
+        n = len(order) - len(order) % batch_size
+        pf = getattr(dataset, "prefetch", None)
+        for s in range(0, n, batch_size):
+            if pf is not None and s + batch_size < n:
+                pf(order[s + batch_size:s + 2 * batch_size])
             inps, outs, yps = [], [], []
             for i in order[s:s + batch_size]:
                 inp, out, ts = dataset[int(i)]

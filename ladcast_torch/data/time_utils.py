@@ -11,6 +11,12 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 
+def timestamp_str_to_int(ts: str) -> int:
+    """'YYYY-MM-DDThh' (the name of a monthly tar's member) -> YYYYMMDDHH."""
+    return int(ts.replace("-", "").replace("T", "").replace(" ", "")
+               .replace(":", "")[:10])
+
+
 def int_to_datetime(ts_int: int) -> datetime:
     s = str(int(ts_int))
     return datetime(int(s[0:4]), int(s[4:6]), int(s[6:8]), int(s[8:10]))
@@ -115,15 +121,21 @@ SPLIT_YEARS = {"train": (1979, 2017), "validation": (2018, 2018),
                "test": (2022, 2022), "full": (1979, 2022)}
 
 
+def split_year_range(split: str) -> Tuple[int, int]:
+    """(first year, last year) of a named split; a year ("2018") selects
+    that year alone."""
+    if split in SPLIT_YEARS:
+        return SPLIT_YEARS[split]
+    year = int(split)
+    if not 1979 <= year <= 2100:
+        raise ValueError(f"split {split!r}: a name of {sorted(SPLIT_YEARS)} "
+                         f"or a year")
+    return (year, year)
+
+
 def split_timestamps(timestamps: Sequence[int], split: str) -> np.ndarray:
     """The YYYYMMDDHH ints of ``timestamps`` inside a split's years."""
     ts = np.asarray(timestamps, np.int64)
-    if split in SPLIT_YEARS:
-        start, end = SPLIT_YEARS[split]
-    else:
-        start = end = int(split)
-        if not 1979 <= start <= 2100:
-            raise ValueError(f"split {split!r}: a name of {sorted(SPLIT_YEARS)} "
-                             f"or a year")
+    start, end = split_year_range(split)
     years = ts // 10**6
     return ts[(years >= start) & (years <= end)]

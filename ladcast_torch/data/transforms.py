@@ -26,3 +26,20 @@ def mask_sst_nans(x: torch.Tensor, sst_channel: int, fill_value: float = -2.0):
     x = x.clone()
     x[..., sst_channel] = torch.where(nan_mask, fill_value, sst)
     return x, nan_mask
+
+
+def crop_south_pole(x, lat_axis: int = -3):
+    """Drop the first latitude row (-90 deg; latitude ascends from -90) of
+    a (..., lat, lon, C) array: the 121-row ERA5 grid becomes the model's
+    120 rows."""
+    idx = [slice(None)] * x.ndim
+    idx[lat_axis] = slice(1, None)
+    return x[tuple(idx)]
+
+
+def periodic_roll(x: torch.Tensor, shift_lat: int, shift_lon: int,
+                  lat_axis: int = -3, lon_axis: int = -2) -> torch.Tensor:
+    """The periodic re-anchoring augmentation: roll the grid so that
+    (shift_lat, shift_lon) becomes its top-left corner."""
+    return torch.roll(x, shifts=(-shift_lat, -shift_lon),
+                      dims=(lat_axis, lon_axis))

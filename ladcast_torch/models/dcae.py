@@ -17,15 +17,27 @@ projection.
 
 The Sana linear attention keeps the reference's channel regrouping: the
 post-projection reshape takes contiguous 3*head_dim channel blocks as
-(query, key, value) whatever their projection role. The optional
-timestep conditioning (``temb_channels``) is not ported; no shipped config
-sets it.
+(query, key, value) whatever their projection role.
+
+Timestep conditioning (``temb_channels``; no shipped config sets it):
+``encode``, ``decode`` and ``forward`` take an optional ``time_elapsed``
+(B,), embedded by ``timestep_embedder`` (a 256-wide sinusoid, sin and cos
+flipped, then Linear-SiLU-Linear) into a (B, temb_channels) vector that
+modulates every ResBlock (scale and shift between its convs, from
+``time_emb_porj``: the reference's name, typo included, which published
+weights use) and every EfficientViT attention (an AdaLayerNormZero-style
+pre-norm ``norm_in`` and a gate on its output, from its own
+``time_emb_porj``). The embedding and the modulations are fp32 whatever
+the parameters' dtype, as in the JAX package, so the activations of a
+bf16 model are promoted to fp32 from the first modulated block on (its
+later convs run on the fp32 kernels). With ``temb_channels=None`` the
+parameters and outputs are those of the unconditioned model.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -39,6 +51,7 @@ from ladcast_torch.models.layers import (
     dense,
     init_flax_defaults_,
 )
+from ladcast_torch.ops.embeddings import timestep_embedding
 from ladcast_torch.ops.norms import rms_norm
 from ladcast_torch.ops.pixel_shuffle import pixel_shuffle, pixel_unshuffle
 from ladcast_torch.ops.sphere import kernel_convs, pack_weight, sphere_conv2d
@@ -94,16 +107,26 @@ class RMSNormLayer(Affine):
         return rms_norm(x, self.weight, self.eps, self.bias)
 
 
+def _modulation(temb, linear, act, chunks):
+    """``chunks`` (B, 1, 1, C) modulations from ``linear(act(temb))``."""
+    return [m[:, None, None] for m in linear(act(temb)).chunk(chunks, dim=-1)]
+
+
 class ResBlock(nn.Module):
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, temb_channels: Optional[int] = None):
         super().__init__()
         self.conv1 = SphereConv(channels, channels)
         self.conv2 = SphereConv(channels, channels, bias=False)
         self.norm = RMSNormLayer(channels, 1e-5)
+        if temb_channels:
+            self.time_emb_porj = Dense(temb_channels, 2 * channels)
 
-    def forward(self, x):
-        h = self.conv2(F.silu(self.conv1(x)))
-        return self.norm(h) + x
+    def forward(self, x, temb=None):
+        h = F.silu(self.conv1(x))
+        if temb is not None:
+            scale, shift = _modulation(temb, self.time_emb_porj, F.silu, 2)
+            h = h * scale + shift
+        return self.norm(self.conv2(h)) + x
 
 
 class GLUMBConv(nn.Module):
@@ -145,12 +168,33 @@ class SanaMultiscaleProjection(nn.Module):
         return out.flatten(-2)
 
 
+class AdaLayerNormZeroSingle(nn.Module):
+    """The attention's timestep pre-norm: an fp32 LayerNorm (eps 1e-15, no
+    affine) of x, scaled and shifted by ``linear(silu(emb))``, which also
+    gives the output gate. Returns (modulated x, gate (B, 1, 1, C))."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.linear = Dense(channels, 3 * channels)
+
+    def forward(self, x, emb):
+        shift, scale, gate = _modulation(emb, self.linear, F.silu, 3)
+        xf = x.float()
+        mu = xf.mean(-1, keepdim=True)
+        var = (xf - mu).square().mean(-1, keepdim=True)
+        xn = ((xf - mu) * torch.rsqrt(var + 1e-15)).to(x.dtype)
+        return xn * (1.0 + scale) + shift, gate
+
+
 class SanaMultiscaleLinearAttention(nn.Module):
     """ReLU linear attention over spatial tokens with the +1-pad
-    normalization, in fp32, residual connected."""
+    normalization, in fp32, residual connected. With a timestep embedding
+    the residual and the attention's input are the pre-normed x, and the
+    gate scales the output projection before ``norm_out``."""
 
     def __init__(self, channels: int, attention_head_dim: int,
-                 kernel_sizes: Tuple[int, ...], eps: float = 1e-15):
+                 kernel_sizes: Tuple[int, ...], eps: float = 1e-15,
+                 temb_channels: Optional[int] = None):
         super().__init__()
         self.head_dim = attention_head_dim
         self.eps = eps
@@ -164,8 +208,14 @@ class SanaMultiscaleLinearAttention(nn.Module):
              for ks in kernel_sizes])
         self.to_out = Dense(inner * (1 + len(kernel_sizes)), channels, bias=False)
         self.norm_out = RMSNormLayer(channels, 1e-5)
+        if temb_channels:
+            self.time_emb_porj = Dense(temb_channels, channels)
+            self.norm_in = AdaLayerNormZeroSingle(channels)
 
-    def forward(self, x):
+    def forward(self, x, temb=None):
+        gate = None
+        if temb is not None:
+            x, gate = self.norm_in(x, self.time_emb_porj(F.relu(temb)))
         B, H, W, C = x.shape
         hd = self.head_dim
         qkv = torch.cat([self.to_q(x), self.to_k(x), self.to_v(x)], dim=-1)
@@ -179,20 +229,24 @@ class SanaMultiscaleLinearAttention(nn.Module):
         scores = torch.einsum("bngi,bngj->bgij", v_pad, kg)
         out = torch.einsum("bgij,bngj->bngi", scores, qg)
         out = out[..., :hd] / (out[..., hd:] + self.eps)
-        out = out.to(x.dtype).reshape(B, H, W, G * hd)
-        return self.norm_out(self.to_out(out)) + x
+        out = self.to_out(out.to(x.dtype).reshape(B, H, W, G * hd))
+        if gate is not None:
+            out = out * gate
+        return self.norm_out(out) + x
 
 
 class EfficientViTBlock(nn.Module):
     def __init__(self, channels: int, attention_head_dim: int,
-                 qkv_multiscales: Tuple[int, ...]):
+                 qkv_multiscales: Tuple[int, ...],
+                 temb_channels: Optional[int] = None):
         super().__init__()
-        self.attn = SanaMultiscaleLinearAttention(channels, attention_head_dim,
-                                                  qkv_multiscales)
+        self.attn = SanaMultiscaleLinearAttention(
+            channels, attention_head_dim, qkv_multiscales,
+            temb_channels=temb_channels)
         self.conv_out = GLUMBConv(channels)
 
-    def forward(self, x):
-        return self.conv_out(self.attn(x))
+    def forward(self, x, temb=None):
+        return self.conv_out(self.attn(x, temb))
 
 
 class DCDownBlock(nn.Module):
@@ -223,12 +277,22 @@ class DCUpBlock(nn.Module):
         return h + y
 
 
-def _make_block(block_type, channels, attention_head_dim, qkv_multiscales):
+def _make_block(block_type, channels, attention_head_dim, qkv_multiscales,
+                temb_channels):
     if block_type == "ResBlock":
-        return ResBlock(channels)
+        return ResBlock(channels, temb_channels)
     if block_type == "EfficientViTBlock":
-        return EfficientViTBlock(channels, attention_head_dim, qkv_multiscales)
+        return EfficientViTBlock(channels, attention_head_dim, qkv_multiscales,
+                                 temb_channels)
     raise ValueError(f"unsupported block type {block_type}")
+
+
+def _run_blocks(blocks, h, temb):
+    """The stage blocks take the timestep embedding; the resamplers do not."""
+    for block in blocks:
+        h = (block(h, temb) if isinstance(block, (ResBlock, EfficientViTBlock))
+             else block(h))
+    return h
 
 
 class Encoder(nn.Module):
@@ -244,17 +308,16 @@ class Encoder(nn.Module):
                 zip(widths, cfg.encoder_layers_per_block)):
             blocks += [_make_block(cfg.encoder_block_types[i], width,
                                    cfg.attention_head_dim,
-                                   cfg.encoder_qkv_multiscales[i])
+                                   cfg.encoder_qkv_multiscales[i],
+                                   cfg.temb_channels)
                        for _ in range(n_layers)]
             if i < len(widths) - 1 and n_layers > 0:
                 blocks.append(DCDownBlock(width, widths[i + 1]))
         self.down_blocks = nn.ModuleList(blocks)
         self.conv_out = SphereConv(widths[-1], cfg.latent_channels)
 
-    def forward(self, x):
-        h = self.conv_in(x)
-        for block in self.down_blocks:
-            h = block(h)
+    def forward(self, x, temb=None):
+        h = _run_blocks(self.down_blocks, self.conv_in(x), temb)
         z = self.conv_out(h)
         if not self.cfg.encoder_out_shortcut:
             return z
@@ -282,53 +345,84 @@ class Decoder(nn.Module):
                 blocks.append(DCUpBlock(widths[i + 1], widths[i]))
             blocks += [_make_block(cfg.decoder_block_types[i], widths[i],
                                    cfg.attention_head_dim,
-                                   cfg.decoder_qkv_multiscales[i])
+                                   cfg.decoder_qkv_multiscales[i],
+                                   cfg.temb_channels)
                        for _ in range(n_layers)]
         self.up_blocks = nn.ModuleList(blocks)
         self.norm_out = RMSNormLayer(widths[0], 1e-7)
         self.conv_out = SphereConv(widths[0], cfg.out_channels)
         self.act = _ACTS[cfg.decoder_conv_act_fn]
 
-    def forward(self, z):
+    def forward(self, z, temb=None):
         h = self.conv_in(z)
         if self.cfg.decoder_in_shortcut:
             h = h + z.repeat_interleave(h.shape[-1] // z.shape[-1], dim=-1)
-        for block in self.up_blocks:
-            h = block(h)
+        h = _run_blocks(self.up_blocks, h, temb)
         return self.conv_out(self.act(self.norm_out(h)))
+
+
+class TimestepEmbedder(nn.Module):
+    """A 256-wide sinusoid of the timestep (cos first) through
+    Linear-SiLU-Linear: (B,) -> (B, dim), fp32."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.linear_1 = Dense(256, dim)
+        self.linear_2 = Dense(dim, dim)
+
+    def forward(self, t):
+        return self.linear_2(F.silu(self.linear_1(timestep_embedding(t, 256))))
 
 
 class AutoencoderDC(nn.Module):
     """Top-level AE. Public layout is NHWC: ``encode`` appends the static
-    channels, ``decode`` strips them unless ``return_static``."""
+    channels, ``decode`` strips them unless ``return_static``. With
+    ``cfg.temb_channels``, ``time_elapsed`` (B,) conditions both halves
+    (or a ready embedding ``temb``, as ``forward`` passes its one)."""
 
     def __init__(self, cfg: DCAEConfig):
         super().__init__()
-        if cfg.temb_channels:
-            raise NotImplementedError(
-                "DCAE timestep conditioning (temb_channels) is not ported")
         self.cfg = cfg
         self.encoder = Encoder(cfg)
         self.decoder = Decoder(cfg)
+        if cfg.temb_channels:
+            self.timestep_embedder = TimestepEmbedder(cfg.temb_channels)
         if self.encoder.conv_in.weight.device.type != "meta":
             init_flax_defaults_(self)
 
-    def encode(self, x, static_conditioning=None):
+    def _temb(self, time_elapsed, device):
+        if time_elapsed is None:
+            return None
+        if not self.cfg.temb_channels:
+            raise ValueError("time_elapsed given but cfg.temb_channels is unset")
+        t = torch.as_tensor(time_elapsed, device=device).reshape(-1)
+        return self.timestep_embedder(t)
+
+    def encode(self, x, static_conditioning=None, time_elapsed=None, temb=None):
         if static_conditioning is not None:
             if static_conditioning.dim() == 3:
                 static_conditioning = static_conditioning[None].expand(
                     x.shape[0], *static_conditioning.shape)
             x = torch.cat([x, static_conditioning.to(x.dtype)], dim=-1)
-        return self.encoder(x)
+        if temb is None:
+            temb = self._temb(time_elapsed, x.device)
+        return self.encoder(x, temb)
 
-    def decode(self, z, return_static: bool = False):
-        y = self.decoder(z)
+    def decode(self, z, return_static: bool = False, time_elapsed=None,
+               temb=None):
+        if temb is None:
+            temb = self._temb(time_elapsed, z.device)
+        y = self.decoder(z, temb)
         if not return_static and self.cfg.static_channels:
             y = y[..., : -self.cfg.static_channels]
         return y
 
-    def forward(self, x, static_conditioning=None, return_static: bool = False):
-        return self.decode(self.encode(x, static_conditioning), return_static)
+    def forward(self, x, static_conditioning=None, return_static: bool = False,
+                time_elapsed=None):
+        # one embedding for both halves
+        temb = self._temb(time_elapsed, x.device)
+        return self.decode(self.encode(x, static_conditioning, temb=temb),
+                           return_static, temb=temb)
 
 
 def build_dcae(cfg: DCAEConfig, device="cuda",

@@ -22,6 +22,12 @@ Quirks the weights depend on, kept as in the reference:
 Frames are channels-last (B, T, H, W, C); tokens (B, S, D); attention BSHD.
 Parameter names are the reference diffusers ones. With ``cfg.remat`` each
 dual- and single-stream block is a gradient checkpoint while grad is on.
+With ``cfg.int8_matmuls`` the projections the JAX package quantises run
+as int8 products (``ops.quant.QuantizableDense``): the dual-stream
+blocks' q/k/v, added q/k/v, output projections and both feed-forwards,
+the single-stream blocks' q/k/v, ``proj_mlp`` and ``proj_out``; the
+refiner, the AdaLN linears, the embedders and the top-level projections
+stay in float.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ from ladcast_torch.ops import rope as rope_ops
 from ladcast_torch.ops.attention import norm_rope_attention
 from ladcast_torch.ops.embeddings import timestep_embedding, year_sincos_embedding
 from ladcast_torch.ops.norms import layer_norm
+from ladcast_torch.ops.quant import QuantizableDense
 
 _gelu_tanh = functools.partial(F.gelu, approximate="tanh")
 
@@ -95,9 +102,9 @@ class CombinedTimestepTextProj(nn.Module):
 
 
 class _ProjAct(nn.Module):
-    def __init__(self, dim: int, inner: int, act):
+    def __init__(self, dim: int, inner: int, act, quant: bool = False):
         super().__init__()
-        self.proj = Dense(dim, inner)
+        self.proj = QuantizableDense(dim, inner, quant=quant)
         self.act = act
 
     def forward(self, x):
@@ -105,13 +112,14 @@ class _ProjAct(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """diffusers FeedForward: ``net.0.proj`` -> act -> ``net.2``."""
+    """diffusers FeedForward: ``net.0.proj`` -> act -> ``net.2``; both
+    projections int8 with ``quant``."""
 
-    def __init__(self, dim: int, mult: float, act):
+    def __init__(self, dim: int, mult: float, act, quant: bool = False):
         super().__init__()
         inner = int(dim * mult)
-        self.net = nn.ModuleList([_ProjAct(dim, inner, act), nn.Identity(),
-                                  Dense(inner, dim)])
+        self.net = nn.ModuleList([_ProjAct(dim, inner, act, quant), nn.Identity(),
+                                  QuantizableDense(inner, dim, quant=quant)])
 
     def forward(self, x):
         return self.net[2](self.net[0](x))
@@ -160,19 +168,21 @@ def cached_segment_tables(cache: dict, side: str, segments):
 
 class JointAttention(nn.Module):
     """Dual-stream joint attention: the latent stream rotated, the
-    conditioning stream normed with its own weights and not rotated."""
+    conditioning stream normed with its own weights and not rotated; every
+    projection int8 with ``int8``."""
 
-    def __init__(self, num_heads: int, head_dim: int, impl: str):
+    def __init__(self, num_heads: int, head_dim: int, impl: str,
+                 int8: bool = False):
         super().__init__()
         inner = num_heads * head_dim
         self.num_heads, self.impl = num_heads, impl
         for name in ("to_q", "to_k", "to_v", "add_q_proj", "add_k_proj",
                      "add_v_proj"):
-            setattr(self, name, Dense(inner, inner))
+            setattr(self, name, QuantizableDense(inner, inner, quant=int8))
         for name in ("norm_q", "norm_k", "norm_added_q", "norm_added_k"):
             setattr(self, name, Affine(head_dim, bias=False))
-        self.to_out = nn.ModuleList([Dense(inner, inner)])
-        self.to_add_out = Dense(inner, inner)
+        self.to_out = nn.ModuleList([QuantizableDense(inner, inner, quant=int8)])
+        self.to_add_out = QuantizableDense(inner, inner, quant=int8)
         self._tables = {}
 
     def forward(self, x, cond, rope_table, attn_bias=None):
@@ -198,13 +208,16 @@ class JointAttention(nn.Module):
 
 class ConcatStreamAttention(nn.Module):
     """Single-stream attention: shared QKV over the joint [latent; cond]
-    tokens, each segment rotated with its own table; no output projection."""
+    tokens, each segment rotated with its own table; no output projection;
+    q/k/v int8 with ``int8``."""
 
-    def __init__(self, num_heads: int, head_dim: int, impl: str):
+    def __init__(self, num_heads: int, head_dim: int, impl: str,
+                 int8: bool = False):
         super().__init__()
         inner = num_heads * head_dim
         self.num_heads, self.impl = num_heads, impl
-        self.to_q, self.to_k, self.to_v = (Dense(inner, inner) for _ in range(3))
+        self.to_q, self.to_k, self.to_v = (QuantizableDense(inner, inner, quant=int8)
+                                           for _ in range(3))
         self.norm_q = Affine(head_dim, bias=False)
         self.norm_k = Affine(head_dim, bias=False)
         self._tables = {}
@@ -334,14 +347,14 @@ class TokenRefiner(nn.Module):
 
 class DualStreamBlock(nn.Module):
     def __init__(self, num_heads: int, head_dim: int, mlp_ratio: float,
-                 impl: str):
+                 impl: str, int8: bool = False):
         super().__init__()
         dim = num_heads * head_dim
         self.norm1 = AdaLayerNormZero(dim)
         self.norm1_context = AdaLayerNormZero(dim)
-        self.attn = JointAttention(num_heads, head_dim, impl)
-        self.ff = FeedForward(dim, mlp_ratio, _gelu_tanh)
-        self.ff_context = FeedForward(dim, mlp_ratio, _gelu_tanh)
+        self.attn = JointAttention(num_heads, head_dim, impl, int8)
+        self.ff = FeedForward(dim, mlp_ratio, _gelu_tanh, int8)
+        self.ff_context = FeedForward(dim, mlp_ratio, _gelu_tanh, int8)
 
     def forward(self, x, cond, temb, rope_table, attn_bias=None):
         norm_x, gate_msa, shift_mlp, scale_mlp, gate_mlp = self.norm1(x, temb)
@@ -360,14 +373,14 @@ class DualStreamBlock(nn.Module):
 
 class SingleStreamBlock(nn.Module):
     def __init__(self, num_heads: int, head_dim: int, mlp_ratio: float,
-                 impl: str):
+                 impl: str, int8: bool = False):
         super().__init__()
         dim = num_heads * head_dim
         mlp_dim = int(dim * mlp_ratio)
         self.norm = AdaLayerNormZeroSingle(dim)
-        self.proj_mlp = Dense(dim, mlp_dim)
-        self.attn = ConcatStreamAttention(num_heads, head_dim, impl)
-        self.proj_out = Dense(dim + mlp_dim, dim)
+        self.proj_mlp = QuantizableDense(dim, mlp_dim, quant=int8)
+        self.attn = ConcatStreamAttention(num_heads, head_dim, impl, int8)
+        self.proj_out = QuantizableDense(dim + mlp_dim, dim, quant=int8)
 
     def forward(self, x, cond, temb, rope_table, cond_rope_table,
                 attn_bias=None):
@@ -426,11 +439,12 @@ class LaDCastTransformer3D(nn.Module):
         self.time_text_embed = CombinedTimestepTextProj(inner, inner)
         if cfg.incl_time_elapsed:
             self.time_elapsed_embed = TimestepEmbedder(256, 2 * inner)
+        int8 = cfg.int8_matmuls
         self.transformer_blocks = nn.ModuleList(
-            [DualStreamBlock(heads, hd, cfg.mlp_ratio, impl)
+            [DualStreamBlock(heads, hd, cfg.mlp_ratio, impl, int8)
              for _ in range(cfg.num_layers)])
         self.single_transformer_blocks = nn.ModuleList(
-            [SingleStreamBlock(heads, hd, cfg.mlp_ratio, impl)
+            [SingleStreamBlock(heads, hd, cfg.mlp_ratio, impl, int8)
              for _ in range(cfg.num_single_layers)])
         self.norm_out = SiluLinear(inner, 2 * inner)
         self.proj_out = Dense(inner, cfg.out_channels)

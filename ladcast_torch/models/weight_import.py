@@ -12,6 +12,10 @@ Layout conversions:
   Dense patch embed (I, O)          -> Conv3d 1x1x1 (O, I, 1, 1, 1)
   Dense GLUMBConv 1x1 (I, O)        -> Conv2d 1x1 (O, I, 1, 1)
   grouped 1x1 einsum (g, gs, gs)    -> grouped Conv2d 1x1 (g*gs, gs, 1, 1)
+
+The DCAE's timestep conditioning follows the same rules: its
+``timestep_embedder/linear_1`` keeps its name (not an index), and the
+blocks' ``time_emb_porj`` and ``norm_in/linear`` Dense kernels transpose.
 """
 
 from __future__ import annotations

@@ -27,6 +27,16 @@ TINY = dict(in_channels=9, out_channels=9, latent_channels=4,
             static_channels=1)
 
 
+@pytest.fixture(autouse=True)
+def _two_torch_threads():
+    """The test suite runs files in parallel workers on a shared CPU; two
+    intra-op threads per worker keep them from oversubscribing it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("k,cin,cout,groups", [(3, 5, 7, 1), (5, 6, 6, 6),
                                                (3, 6, 6, 6)])
 def test_sphere_conv2d_matches_jax(k, cin, cout, groups):
@@ -139,6 +149,58 @@ def test_production_config_names_and_shapes():
     assert tuple(sd["encoder.conv_in.weight"].shape) == (252, 89, 3, 3)
 
 
-def test_temb_not_ported():
-    with pytest.raises(NotImplementedError):
-        TorchAE(t_config.DCAEConfig(**TINY, temb_channels=16))
+def test_temb_encode_decode_forward_match_jax():
+    """The timestep-conditioned DCAE (``temb_channels``) with the JAX
+    weights through ``state_dict_from_flax``, every parameter moved off
+    its initial value: encode, decode and the full forward (one embedding
+    for both halves) agree in fp32 to 1e-5 relative L2."""
+    cfg = dict(TINY, temb_channels=12)
+    rng = np.random.RandomState(3)
+    x = rng.randn(2, 16, 32, 8).astype(np.float32)
+    static = rng.randn(16, 32, 1).astype(np.float32)
+    t = np.asarray([6.0, 240.0], np.float32)
+    jmodel = JaxAE(j_config.DCAEConfig(**cfg))
+    shapes = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0), jnp.asarray(x),
+                            jnp.asarray(static), time_elapsed=jnp.asarray(t))
+
+    def draw(path, leaf):  # seeded weights, none at its initial value
+        name, shape = path[-1].key, leaf.shape
+        if name.endswith("kernel"):
+            w = rng.randn(*shape) / np.sqrt(np.prod(shape[:-1]))
+        else:
+            w = (name == "weight") + 0.05 * rng.randn(*shape)
+        return w.astype(np.float32)
+
+    params = jax.tree_util.tree_map_with_path(draw, shapes)
+    sd = state_dict_from_flax(params, "dcae")
+    for name in ("timestep_embedder.linear_1.weight",
+                 "encoder.down_blocks.0.time_emb_porj.weight",
+                 "decoder.up_blocks.0.attn.time_emb_porj.weight",
+                 "decoder.up_blocks.0.attn.norm_in.linear.weight"):
+        assert name in sd, name
+    tmodel = TorchAE(t_config.DCAEConfig(**cfg))
+    tmodel.load_state_dict(sd, strict=True)
+    tmodel.eval()
+    jx, js, jt = jnp.asarray(x), jnp.asarray(static), jnp.asarray(t)
+
+    def run(p):  # one compile: encode, decode of that latent, forward
+        z = jmodel.apply(p, jx, js, time_elapsed=jt, method=JaxAE.encode)
+        return z, jmodel.apply(p, z, time_elapsed=jt, method=JaxAE.decode), \
+            jmodel.apply(p, jx, js, time_elapsed=jt)
+
+    z_j, y_j, f_j = map(np.asarray, jax.jit(run)(params))
+    with torch.no_grad():
+        tx, ts, tt = map(torch.from_numpy, (x, static, t))
+        z_t = tmodel.encode(tx, ts, time_elapsed=tt).numpy()
+        y_t = tmodel.decode(torch.from_numpy(z_j), time_elapsed=tt).numpy()
+        f_t = tmodel(tx, ts, time_elapsed=tt).numpy()
+        plain = tmodel(tx, ts).numpy()  # no time_elapsed: no modulation
+    for got, want in ((z_t, z_j), (y_t, y_j), (f_t, f_j)):
+        assert got.shape == want.shape
+        assert _rel(got, want) <= 1e-5, _rel(got, want)
+    assert _rel(plain, f_j) > 1e-2
+    with pytest.raises(ValueError, match="temb_channels"):
+        TorchAE(t_config.DCAEConfig(**TINY)).encode(tx, ts, time_elapsed=tt)
+    # unset, the model has the unconditioned parameters
+    assert not any("time_emb" in n or "timestep_embedder" in n or "norm_in" in n
+                   for n in TorchAE(t_config.DCAEConfig(**TINY)).state_dict())

@@ -56,6 +56,27 @@ def test_kernel_sources_ship_with_the_package():
         assert 'extern "C" int' in text and "cudaGetLastError()" in text
 
 
+def test_native_reader_source_ships_with_the_package():
+    """The port builds its own copy of the C++ shard reader, which the
+    package data lists, and no port file names the JAX package's native/
+    directory or its library."""
+    import re
+    import tomllib
+
+    from ladcast_torch.data import native_reader
+
+    src = ROOT / "ladcast_torch" / "native" / "shard_reader.cpp"
+    assert native_reader._SOURCE == src and src.is_file()
+    data = tomllib.loads((ROOT / "pyproject.toml").read_text())
+    assert "native/*.cpp" in data["tool"]["setuptools"]["package-data"]["ladcast_torch"]
+    for path in PORT_FILES + [src]:
+        text = path.read_text()
+        assert "native/libshard_reader.so" not in text, path
+        assert "make -C" not in text, path
+        for m in re.finditer(r"native/", text):
+            assert text[:m.start()].endswith("ladcast_torch/"), (path, m.start())
+
+
 def test_profile_categories_name_every_kernel():
     """chip_smoke.py's profile puts each kernel of ladcast_torch/csrc under
     its own category, never under "gemm" (whose "wgmma" fragment would take

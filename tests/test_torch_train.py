@@ -380,9 +380,8 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
     cfg, lat = _cli_fixtures(tmp_path)
     base = ["--config", cfg, "--latents", lat, "--device", "cpu",
             "--output_dir", str(tmp_path / "x")]
-    for extra, item in ((["--mesh", "data=-1"], "M12"), (["--zero"], "M12"),
-                        (["--reader", "native"], "M13")):
-        with pytest.raises(NotImplementedError, match=item):
+    for extra in (["--mesh", "data=-1"], ["--zero"]):
+        with pytest.raises(NotImplementedError, match="M12"):
             t_cli.main(base + extra)
     with pytest.raises(NotImplementedError, match="M13"):
         t_cli.main(["--config", cfg, "--latents", str(tmp_path), "--device",
