@@ -106,10 +106,11 @@ latent shards, and the DCAE with timestep conditioning.
   5b. the 1.6B: ``config.ladcast_1p6b_config`` at full width on seeded
      weights: its bf16 forward at B=20 (1800 + 450 tokens), finite and
      launching K1 and K2 once per attention, after a parity check against
-     the plain composite at B=2; ``cli.train_ar.run`` must refuse
-     configs/ladcast_1p6b.yaml as shipped (its parallel: section asks for
-     tensor parallelism and ZeRO), then trains TRAIN_STEPS_1P6B steps with
-     the section dropped, as a one-card user must (remat as the yaml sets
+     the plain composite at B=2; ``cli.train_ar.run`` in one process must
+     refuse configs/ladcast_1p6b.yaml as shipped with the mesh-size error
+     (its parallel: section asks for model groups of 8 ranks), then trains
+     TRAIN_STEPS_1P6B steps with the section dropped, as a one-card user
+     must (remat as the yaml sets
      it, on the training phase's latents): ms per step, peak memory,
      losses, and the launches of K1-lse and K3 at 16 heads; the 26 GB
      checkpoint is not written;
@@ -158,6 +159,18 @@ latent shards, and the DCAE with timestep conditioning.
      the same archive) and ``train_ar`` from the shards (``--reader
      native`` and ``mmap``) against the same runs on the ``.npz``: equal
      losses, gradient norms and validation losses;
+  6e. parallel (``ladcast_torch.parallel``): a one-rank NCCL group in this
+     process trains the 375M yaml under ``--mesh data=-1`` (DDP), the 1.6B
+     yaml as shipped under ``--mesh data=-1 --zero`` (FSDP) and the chain's
+     DCAE (DDP), each held to its single-device run's losses per step
+     (PARALLEL_LOSS_RTOL) and launches, with ms per step and peak memory
+     beside that run's; then two processes on the one card over a gloo
+     group (NCCL refuses two ranks on one GPU): ``pred_rollout
+     --shard_ensemble`` as the Heun run of phase 6 (10 members a rank, with
+     the decode), its latents held per member to that run's (the 375M bf16
+     limit) and its fields to that run's, and ``evaluate_ens`` over the DPM
+     run's two files (one a rank) against a one-process run's merged
+     tables (PARALLEL_SCORE_RTOL); wall time and each rank's peak memory;
   7. the kernel summary line, the card line and, last, the ok line.
 
 With ``--profile``, one more repetition of the main path runs under
@@ -171,6 +184,7 @@ import argparse
 import contextlib
 import dataclasses
 import datetime
+import gc
 import json
 import math
 import os
@@ -1484,9 +1498,9 @@ def dit_1p6b_phase(tmp, latents):
     """The 1.6B DiT (configs/ladcast_1p6b.yaml) at full width on seeded
     weights: its bf16 forward at the inference shape (B=20, 1800 + 450
     tokens) after a parity check against the plain composite at B=2, then
-    ``cli.train_ar.run`` on the yaml: the shipped file must raise on its
-    parallel: section (tensor parallelism and ZeRO are not ported), and with
-    the section dropped, as a one-card user must, TRAIN_STEPS_1P6B steps run
+    ``cli.train_ar.run`` on the yaml: the shipped file must raise the mesh
+    error of its parallel: section (8-rank model groups) in one process, and
+    with the section dropped, as a one-card user must, TRAIN_STEPS_1P6B steps run
     through K1-lse and K3 at 16 heads, remat as the yaml sets it. The
     steps' 26 GB checkpoint is not written (the 375M training phase checks
     the checkpoint path)."""
@@ -1544,12 +1558,12 @@ def dit_1p6b_phase(tmp, latents):
 
     try:
         train_ar.run(LADCAST_1P6B_YAML, args(0, "1p6b_refused"))
-    except NotImplementedError as e:
+    except ValueError as e:
         refusal = str(e)
     else:
         raise AssertionError("train_ar.run took configs/ladcast_1p6b.yaml's "
-                             "parallel: section")
-    if "M12" not in refusal:
+                             "parallel: section in one process")
+    if "does not divide 1 devices" not in refusal:
         raise AssertionError(f"1.6B parallel: section refused with {refusal!r}")
     one_card = {k: v for k, v in LADCAST_1P6B_YAML.items() if k != "parallel"}
     skipped = []
@@ -2606,6 +2620,340 @@ def dcae_temb_phase(cfg=None, device="cuda"):
 # kernel-name fragments -> category, first match wins: every kernel of
 # ladcast_torch/csrc is named before "gemm", whose "wgmma" would take a
 # kernel that issues wgmma (tests/test_torch_rules.py holds this)
+# The parallel phase (ladcast_torch/parallel/): one-rank NCCL runs of the
+# trainers in this process, then two processes on the one card over a gloo
+# group (NCCL refuses two ranks on one GPU). Limits: the trainers' losses
+# per step to PARALLEL_LOSS_RTOL of the single-device runs', the sharded
+# forecast's members to the 375M bf16 limit (MODEL_TOL) of the
+# single-process latents, the merged score tables to PARALLEL_SCORE_RTOL.
+PARALLEL_LOSS_RTOL = 1e-5
+PARALLEL_SCORE_RTOL = 1e-6
+PARALLEL_SPAWN_TIMEOUT_S = 300
+
+
+def _parallel_worker(rank, world, store, job, argv, out):
+    """One rank of a two-process run: a gloo group, the model work on the
+    device the CLI's ``--device`` names (cuda:0 for both ranks on the card);
+    writes its records, launches, wall time and peak memory to ``out``."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    from ladcast_torch.cli import evaluate_ens, pred_rollout
+    from ladcast_torch.ops import flash_attention as fa
+    from ladcast_torch.parallel import dist
+
+    dist.initialize(backend="gloo", init_method=f"file://{store}", world_size=world,
+                    rank=rank)
+    try:
+        cli = pred_rollout if job == "pred_rollout" else evaluate_ens
+        args = cli.build_parser().parse_args(argv)
+        cuda = args.device.startswith("cuda")
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        _reset_launches(fa)
+        _reset_conv_launches()
+        t0 = time.perf_counter()
+        res = cli.run(args)
+        wall_s = time.perf_counter() - t0
+        recs = res if job == "pred_rollout" else res["records"]
+        rec = {"rank": rank, "wall_s": wall_s, "records": recs,
+               "launches": {**_launches(fa), **_conv_launches()},
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30 if cuda else None}
+        with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+            json.dump(rec, f)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def spawn_two(job, argv, tmp, timeout=PARALLEL_SPAWN_TIMEOUT_S):
+    """``job`` ("pred_rollout" or "evaluate_ens") with ``argv`` in two
+    processes; returns each rank's record. A failed rank fails the phase;
+    no process outlives the call."""
+    import torch.multiprocessing as mp
+
+    out = tempfile.mkdtemp(dir=tmp, prefix=f"{job}_ranks_")
+    ctx = mp.start_processes(
+        _parallel_worker, args=(2, os.path.join(out, "store"), job, argv, out),
+        nprocs=2, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{job} over two processes outlived {timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    recs = []
+    for r in range(2):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def _step_rel_diff(got, want):
+    return [abs(a - b) / max(abs(b), 1e-30) for a, b in zip(got, want)]
+
+
+def parallel_phase(tmp, latents, training, dit_1p6b, forecast, chain,
+                   ar_yaml=LADCAST_375M_YAML, p16_yaml=LADCAST_1P6B_YAML,
+                   dcae_yaml=DCAE_84_YAML, ar_steps=TRAIN_STEPS,
+                   p16_steps=TRAIN_STEPS_1P6B, dcae_steps=CHAIN_DCAE_STEPS,
+                   device="cuda"):
+    """``ladcast_torch.parallel`` on the card, through the CLIs' ``run``.
+
+    1. A one-rank NCCL group in this process (a ``file://`` store under
+       ``tmp``): ``train_ar`` on the 375M yaml with ``--mesh data=-1`` (DDP
+       through the explicit all-reduce), the 1.6B yaml as shipped with
+       ``--mesh data=-1 --zero`` (FSDP, a unit per block checkpointing inside it, remat
+       as the yaml sets it) and ``train_dcae`` as the chain runs it (DDP), each
+       held to its single-device run (``training``, ``dit_1p6b``,
+       ``chain``): losses per step, launches, ms per step and peak memory
+       beside that run's; no checkpoint is written.
+    2. Two processes on the one card over gloo: ``pred_rollout
+       --shard_ensemble`` as the forecast phase's Heun run (20 members, 10
+       per rank, with the decode), its latents held to that run's per
+       member and its fields to that run's; ``evaluate_ens`` over the
+       forecast phase's two DPM files, one init time per rank, its merged
+       tables held to a one-process run's. Wall time and each rank's peak
+       memory.
+    With ``device="cpu"`` (and small yamls and step counts) the phase
+    rehearses on the CPU, its group on gloo."""
+    import numpy as np
+    import torch
+
+    from ladcast_torch.cli import evaluate_ens, train_ar, train_dcae
+    from ladcast_torch.ops import flash_attention as fa
+    from ladcast_torch.parallel import dist
+    from ladcast_torch.train import checkpoint as ckpt
+
+    cuda = device == "cuda"
+    dev_args = [] if cuda else ["--device", "cpu"]
+    summary = {}
+
+    def peak():
+        return torch.cuda.max_memory_allocated() / 2**30 if cuda else None
+
+    def reset():
+        """Zero the launch counts and the peak; returns the memory still
+        allocated (the baseline under the run's peak)."""
+        _reset_launches(fa)
+        _reset_conv_launches()
+        gc.collect()  # an earlier run's model and optimizer, held in cycles
+        if not cuda:
+            return None
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated() / 2**30
+
+    # 1. one rank, NCCL
+    t_group = time.perf_counter()
+    dist.initialize(backend="nccl" if cuda else "gloo",
+                    init_method=f"file://{os.path.join(tmp, 'nccl_store')}",
+                    world_size=1, rank=0, device=device)
+    skipped = []
+    save_state, ckpt.save_state = ckpt.save_state, lambda mgr, step, state: skipped.append(step)
+    try:
+        runs = (("train_ar_ddp", "ddp", ar_yaml, ar_steps, ["--mesh", "data=-1"],
+                 training),
+                ("train_1p6b_fsdp", "fsdp", p16_yaml, p16_steps,
+                 ["--mesh", "data=-1", "--zero"], dit_1p6b))
+        for name, regime, yaml, steps, flags, ref in runs:
+            args = train_ar.build_parser().parse_args(
+                ["--latents", latents, "--num_steps", str(steps), "--output_dir",
+                 os.path.join(tmp, name), "--log_every", "1", "--seed", "0",
+                 *flags, *dev_args])
+            base_gb = reset()
+            t0 = time.perf_counter()
+            res = train_ar.run(yaml, args)
+            wall_s = time.perf_counter() - t0
+            hist = res["history"]
+            step_ms = [h["step_s"] * 1e3 for h in hist]
+            rec = {"phase": "parallel_train", "run": name, "ranks": 1, "backend":
+                   "nccl" if cuda else "gloo", "regime": res["state"].regime,
+                   "flags": flags, "steps": len(hist),
+                   "loss": [h["loss"] for h in hist], "ref_loss": ref["loss"],
+                   "grad_norm": [h["grad_norm"] for h in hist],
+                   "ref_grad_norm": ref["grad_norm"],
+                   "median_step_ms": statistics.median(step_ms[2:]) if len(step_ms) > 2 else None,
+                   "ref_median_step_ms": ref["median_step_ms"], "step_ms": step_ms,
+                   "peak_mem_gb": peak(), "ref_peak_mem_gb": ref["peak_mem_gb"],
+                   "allocated_at_start_gb": base_gb,
+                   "launches": _launches(fa), "ref_launches": ref["launches"],
+                   "run_wall_s": wall_s}
+            rec["loss_rel_diff"] = _step_rel_diff(rec["loss"], ref["loss"])
+            rec["bit_equal"] = (rec["loss"] == ref["loss"]
+                                and rec["grad_norm"] == ref["grad_norm"])
+            emit(rec)
+            summary[name] = rec
+            del res, hist
+            if cuda:
+                torch.cuda.empty_cache()
+            if (rec["regime"] != regime or rec["steps"] != steps
+                    or len(ref["loss"]) != steps
+                    or max(rec["loss_rel_diff"]) > PARALLEL_LOSS_RTOL
+                    or rec["launches"] != ref["launches"]):
+                raise AssertionError(f"parallel {name}: {rec}")
+
+        train, val = (os.path.join(tmp, f"chain_{k}.npz") for k in ("train", "val"))
+        args = train_dcae.build_parser().parse_args(
+            ["--data", train, "--val_data", val, "--val_every", str(dcae_steps),
+             "--num_steps", str(dcae_steps), "--output_dir",
+             os.path.join(tmp, "dcae_ddp"), "--log_every", "1", "--seed", "0",
+             *dev_args])
+        ref = chain["train_dcae"]
+        base_gb = reset()
+        t0 = time.perf_counter()
+        res = train_dcae.run(dcae_yaml, args)
+        wall_s = time.perf_counter() - t0
+        hist = res["history"]
+        step_ms = [h["step_s"] * 1e3 for h in hist]
+        rec = {"phase": "parallel_train", "run": "train_dcae_ddp", "ranks": 1,
+               "backend": "nccl" if cuda else "gloo", "regime": res["state"].regime,
+               "steps": len(hist), "loss": [h["loss"] for h in hist],
+               "ref_loss": ref["loss"], "grad_norm": [h["grad_norm"] for h in hist],
+               "ref_grad_norm": ref["grad_norm"],
+               "val_loss": [v["val_loss"] for v in res["validations"]],
+               "ref_val_loss": ref["val_loss"],
+               "median_step_ms": statistics.median(step_ms[2:]) if len(step_ms) > 2 else None,
+               "ref_median_step_ms": ref["median_step_ms"], "step_ms": step_ms,
+               "peak_mem_gb": peak(), "ref_peak_mem_gb": ref["peak_mem_gb"],
+               "allocated_at_start_gb": base_gb,
+               "launches": _conv_launches(), "ref_launches": ref["launches"],
+               "run_wall_s": wall_s}
+        rec["loss_rel_diff"] = _step_rel_diff(rec["loss"] + rec["val_loss"],
+                                              ref["loss"] + ref["val_loss"])
+        rec["bit_equal"] = (rec["loss"] == ref["loss"] and rec["val_loss"] == ref["val_loss"]
+                            and rec["grad_norm"] == ref["grad_norm"])
+        emit(rec)
+        summary["train_dcae_ddp"] = rec
+        del res, hist
+        if (rec["regime"] != "ddp" or rec["steps"] != dcae_steps
+                or len(rec["val_loss"]) != len(ref["val_loss"])
+                or max(rec["loss_rel_diff"]) > PARALLEL_LOSS_RTOL
+                or rec["launches"] != ref["launches"]):
+            raise AssertionError(f"parallel train_dcae: {rec}")
+    finally:
+        ckpt.save_state = save_state
+        if dist.is_initialized():
+            torch.distributed.destroy_process_group()
+    emit({"phase": "parallel_group_done", "wall_s": time.perf_counter() - t_group,
+          "checkpoint_steps_not_written": skipped})
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # 2a. the member-sharded forecast over two processes
+    edm = forecast["edm"]
+    argv = list(edm["argv"])
+    out = os.path.join(tmp, "par_forecast")
+    argv[argv.index("--output_dir") + 1] = out
+    t0 = time.perf_counter()
+    ranks = spawn_two("pred_rollout", argv + ["--shard_ensemble"], tmp)
+    wall_s = time.perf_counter() - t0
+    ts = edm["init_times"][0]
+    got = np.load(os.path.join(out, f"latent_{ts}.npy"))
+    want = np.load(os.path.join(edm["out_dir"], f"latent_{ts}.npy"))
+    members = want.shape[0]
+    rel = [float(np.linalg.norm(got[m] - want[m]) / np.linalg.norm(want[m]))
+           for m in range(members)]
+    with np.load(os.path.join(out, f"fields_{ts}.npz")) as a, \
+            np.load(os.path.join(edm["out_dir"], f"fields_{ts}.npz")) as b:
+        fa_, fb = a["fields"], b["fields"]
+        fields_shape = list(fa_.shape)
+        fields_rel = float(np.linalg.norm((fa_ - fb).ravel().astype(np.float64))
+                           / np.linalg.norm(fb.ravel().astype(np.float64)))
+        fields_finite = bool(np.isfinite(fa_).all())
+        del fa_, fb
+    per_rank = [{k: r[k] for k in ("rank", "wall_s", "launches", "peak_mem_gb")}
+                | {"stages": [{k: v for k, v in x.items() if k.endswith("_s")}
+                              for x in r["records"] if "rollout_s" in x]}
+                for r in ranks]
+    n_init = len(edm["init_times"])
+    exp = edm["expected_launches"]
+    enc = {k: forecast["dpm"]["expected_launches"][k] // len(forecast["dpm"]["init_times"])
+           for k in ("dense_conv", "depthwise_conv")}
+    per = -(-members // 2)  # members per rank
+    frames = per * (got.shape[2] - 1)
+    chunks = -(-frames // 40)  # the pipeline's decode chunk
+    expected = {"norm_rope": exp["norm_rope"], "fused_attention": exp["fused_attention"],
+                "fused_attention_lse": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                **{k: n_init * (enc[k] + chunks * (exp[k] // n_init - enc[k]) // 2)
+                   for k in enc}}
+    rec = {"phase": "parallel_forecast", "ranks": 2, "backend": "gloo",
+           "members": members, "members_per_rank": per, "init_times": edm["init_times"],
+           "shape": list(got.shape), "finite": bool(np.isfinite(got).all()),
+           "member_rel_l2": rel, "max_member_rel_l2": max(rel),
+           "tol": MODEL_TOL["bfloat16"], "bit_equal": bool(np.array_equal(got, want)),
+           "fields_shape": fields_shape, "fields_finite": fields_finite,
+           "fields_rel_l2": fields_rel, "fields_tol": DCAE_TOL["bfloat16"],
+           "ref_rollout_s": edm["rollout_s"], "ref_decode_s": edm["decode_s"],
+           "ref_run_wall_s": edm["run_wall_s"], "ref_peak_mem_gb": edm["peak_mem_gb"],
+           "run_wall_s": wall_s, "per_rank": per_rank, "expected_launches_per_rank": expected,
+           "launches": {k: sum(r["launches"][k] for r in ranks) for k in expected}}
+    emit(rec)
+    summary["forecast"] = rec
+    if (rec["shape"] != list(want.shape) or not rec["finite"] or not fields_finite
+            or rec["max_member_rel_l2"] > MODEL_TOL["bfloat16"]
+            or fields_rel > DCAE_TOL["bfloat16"]
+            or [r["launches"] for r in ranks] != [expected, expected]
+            or ranks[1]["records"][-1].get("gather_s") is None):
+        raise AssertionError(f"parallel forecast: {rec}")
+
+    # 2b. scoring over two processes against one
+    dpm = forecast["dpm"]
+    score_in = os.path.join(tmp, "par_score_in")
+    os.makedirs(score_in)
+    for ts in dpm["init_times"]:
+        shutil.copy(os.path.join(dpm["out_dir"], f"latent_{ts}.npy"), score_in)
+
+    def score_argv(out):
+        return ["--latent_dir", score_in, "--truth", train,
+                "--allow_truth_mean_climatology", "--dcae_params",
+                os.path.join(tmp, "dcae"), "--diagnostics", "--output_dir", out,
+                *dev_args]
+
+    base_gb = reset()
+    t0 = time.perf_counter()
+    one = evaluate_ens.run(evaluate_ens.build_parser().parse_args(
+        score_argv(os.path.join(tmp, "par_score_one"))))
+    one_s = time.perf_counter() - t0
+    one_launches, one_peak = _conv_launches(), peak()
+    if cuda:
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn_two("evaluate_ens", score_argv(os.path.join(tmp, "par_score_two")), tmp)
+    wall_s = time.perf_counter() - t0
+    diffs, same = {}, True
+    for name in sorted(os.listdir(os.path.join(tmp, "par_score_one"))):
+        if not name.endswith(".npy") or ".rank" in name:
+            continue
+        a = np.load(os.path.join(tmp, "par_score_two", name)).astype(np.float64)
+        b = np.load(os.path.join(tmp, "par_score_one", name)).astype(np.float64)
+        if a.shape != b.shape:
+            raise AssertionError(f"parallel evaluate_ens {name}: {a.shape} != {b.shape}")
+        ok = np.isfinite(b)
+        diffs[name] = float(np.abs(a[ok] - b[ok]).max() / max(np.abs(b[ok]).max(), 1e-30))
+        same &= bool(np.array_equal(a, b, equal_nan=True))
+    rec = {"phase": "parallel_evaluate_ens", "ranks": 2, "backend": "gloo",
+           "init_times": dpm["init_times"], "one_process_s": one_s,
+           "one_process_launches": one_launches, "one_process_peak_mem_gb": one_peak,
+           "one_process_allocated_at_start_gb": base_gb,
+           "run_wall_s": wall_s,
+           "per_rank": [{k: r[k] for k in ("rank", "wall_s", "launches", "peak_mem_gb")}
+                        | {"scored": [x["init_time"] for x in r["records"] if x["scored"]]}
+                        for r in ranks],
+           "rel_diff": diffs, "tol": PARALLEL_SCORE_RTOL, "bit_equal": same,
+           "launches": {k: sum(r["launches"][k] for r in ranks) for k in one_launches}}
+    emit(rec)
+    summary["evaluate_ens"] = rec
+    if (one["num_init_times"] != 2 or len(diffs) < 7
+            or max(diffs.values()) > PARALLEL_SCORE_RTOL
+            or rec["launches"] != one_launches
+            or [p["scored"] for p in rec["per_rank"]] != [[t] for t in dpm["init_times"]]):
+        raise AssertionError(f"parallel evaluate_ens: {rec}")
+    return summary
+
+
 CATEGORIES = [("fused_attention", ("fa_bf16_wgmma_kernel", "fa_f32_kernel")),
               ("flash_bwd", ("bwd_dq_bf16_wgmma_kernel", "bwd_dkv_bf16_wgmma_kernel",
                              "bwd_dq_f32_kernel", "bwd_dkv_f32_kernel")),
@@ -2779,7 +3127,7 @@ def main():
         training = training_phase(tmp, latents, args.profile)
         emit({"phase": "training_done", "wall_s": time.perf_counter() - t0})
         t0 = time.perf_counter()
-        dit_1p6b_phase(tmp, latents)
+        p16 = dit_1p6b_phase(tmp, latents)
         emit({"phase": "dit_1p6b_done", "wall_s": time.perf_counter() - t0})
     train_launches = training["kernel"]["launches"]
     t0 = time.perf_counter()
@@ -2795,6 +3143,10 @@ def main():
         t0 = time.perf_counter()
         data = data_sources_phase(tmp)
         emit({"phase": "data_sources_done", "wall_s": time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        parallel = parallel_phase(tmp, synthetic_latents(tmp), training["kernel"],
+                                  p16["training"], forecast, chain)
+        emit({"phase": "parallel_done", "wall_s": time.perf_counter() - t0})
     forecast_launches = forecast["edm"]["launches"]
 
     src = "ladcast_tpu/ops/pallas/flash_attention.py"
@@ -2824,6 +3176,16 @@ def main():
                                         "bound_passes", "library_rel_l2",
                                         "library_bf16p_ms") if k in main}}
 
+    def parallel_launches(kname):
+        """The parallel phase's launches of a kernel, per run (both ranks'
+        summed for the two-process runs), where the run launches it."""
+        runs = {"train_ar_ddp": parallel["train_ar_ddp"], "train_1p6b_fsdp":
+                parallel["train_1p6b_fsdp"], "train_dcae_ddp": parallel["train_dcae_ddp"],
+                "pred_rollout_shard_ensemble": parallel["forecast"],
+                "evaluate_ens_two_ranks": parallel["evaluate_ens"]}
+        return {name: rec["launches"][kname] for name, rec in runs.items()
+                if rec["launches"].get(kname)}
+
     # launches: the bench path's for K1 and K2, the training path's (kernel
     # backward) for K1-lse and K3, the forecast path's (Heun with decode)
     # for K4 and K5, the op's own call for K6; the entries of kernels that
@@ -2838,11 +3200,13 @@ def main():
         # the int8 forecast (Heun, no decode) and the AR trainer on shards
         e["int8_forecast_launches"] = int8["forecast"]["launches"][kname]
         e["data_sources_train_ar_launches"] = data["train_ar"]["launches"][kname]
+        e["parallel_launches"] = parallel_launches(kname)
         summary.append(e)
     e = entry("fused_attention_lse", results["fused_attention_lse"],
               train_launches["fused_attention_lse"])
     e["batch"] = 4
     e["data_sources_train_ar_launches"] = data["train_ar"]["launches"]["fused_attention_lse"]
+    e["parallel_launches"] = parallel_launches("fused_attention_lse")
     summary.append(e)
     pair = next(r for r in results["flash_bwd_pair"] if r["case"] == "dual_2250"
                 and r["dtype"] == "bfloat16")
@@ -2857,6 +3221,7 @@ def main():
         e["dual_2250_h16"] = {k: h16[k] for k in ("ms", "plain_ms", "library_ms",
                                                   "bound_ms", "tflops", "bound_share")}
         e["data_sources_train_ar_launches"] = data["train_ar"]["launches"][kname]
+        e["parallel_launches"] = parallel_launches(kname)
         summary.append(e)
     for kname in ("dense_conv", "depthwise_conv"):
         case, batch = KERNEL_LINE_CASES[kname]
@@ -2877,6 +3242,7 @@ def main():
         e["dcae_temb_launches"] = {stage: temb["bfloat16"][stage]["launches"][kname]
                                    for stage in ("encode", "decode")}
         e["int8_forecast_launches"] = int8["forecast"]["launches"][kname]
+        e["parallel_launches"] = parallel_launches(kname)
         sc = next(r for r in scoring[kname]
                   if r["case"] == KERNEL_LINE_CASES[kname][0])
         e["fp32_scoring"] = {k: sc[k] for k in ("case", "B", "ms", "plain_ms",

@@ -9,9 +9,13 @@ Reads the per-init-time ``latent_<ts>.npy`` files of ``cli.pred_rollout``
 ((ens, C, T+1, h, w), physical latent scale), decodes the members on the
 device (CUDA unless ``--device cpu`` is given) in the dtype of the loaded
 DCAE parameters, scores every lead time against the truth and a
-day-of-year / hour climatology, and writes per metric ``<key>.rank0.npy``
-and the merged ``<key>.npy`` (init times, C, T, ...), then
-``summary.json``. SST (channel 82) takes nan-aware means over the ocean
+day-of-year / hour climatology, and writes per metric and rank
+``<key>.rank<r>.npy`` and, on rank 0 after a barrier, the merged
+``<key>.npy`` (init times, C, T, ...; rank 0's init times first), then
+``summary.json``. Over N ranks (``torchrun --nproc_per_node N``) the init
+times are strided over the ranks; with ``--shard_ensemble`` every rank
+decodes its share of each init time's members instead, and rank 0 gathers
+them and scores. SST (channel 82) takes nan-aware means over the ocean
 (truth NaNs over land).
 
 Truth: an ``.npz`` bundle (``fields`` (time, lat, lon, 84) raw,
@@ -36,6 +40,8 @@ from ladcast_torch.data import time_utils, transforms
 from ladcast_torch.metrics import scores
 from ladcast_torch.metrics.weights import grid_lat_weights
 from ladcast_torch.models import hub
+from ladcast_torch.parallel import dist
+from ladcast_torch.parallel.mesh import pad_to_multiple
 
 METRIC_KEYS = ("ens_mean_mse", "crps", "acc")
 DIAGNOSTIC_KEYS = ("spread", "rank_hist", "spectrum_fc", "spectrum_truth")
@@ -54,7 +60,7 @@ def _exact_fp32_convs():
 
 
 def make_score_fn(dcae, lat_w: torch.Tensor, field_stats=None,
-                  diagnostics: bool = False):
+                  diagnostics: bool = False, shard_ensemble: bool = False):
     """The per-init-time scorer of a DCAE module (on its device, in its
     dtype): score(latents, truth, climate, stats=None) -> {key: (C, T, ...)}.
 
@@ -65,6 +71,11 @@ def make_score_fn(dcae, lat_w: torch.Tensor, field_stats=None,
     is reduced on the device, so only (E, H, W, C) of decoded fields is
     live at a time. ``stats``, when given, gets the seconds spent decoding
     (``decode_s``) and scoring (``score_s``), each ending in a synchronise.
+
+    ``shard_ensemble``: each rank of the process group decodes ceil(E /
+    ranks) of a lead's members (the member axis padded, the extras
+    discarded) and rank 0 gathers them and scores, since CRPS and the
+    spread need every member; the other ranks' ``score`` returns None.
     """
     param = next(dcae.parameters())
     dev, dtype = param.device, param.dtype
@@ -80,8 +91,19 @@ def make_score_fn(dcae, lat_w: torch.Tensor, field_stats=None,
 
     def per_lead(z, tr_t, cl_t):
         # z (E, h, w, C); tr_t, cl_t (H, W, C)
+        E = z.shape[0]
+        if shard_ensemble:
+            n = dist.process_count()
+            per = pad_to_multiple(E, n) // n
+            z = torch.cat([z, z.new_zeros(per * n - E, *z.shape[1:])])
+            z = z[dist.process_index() * per:(dist.process_index() + 1) * per]
         dec = dcae.decode(z.to(dtype)).float()
         dec = transforms.inverse_normalize(dec, fm, fs, 1.0)
+        if shard_ensemble:
+            dec = dist.gather_to_rank0(dec)
+            if dec is None:
+                return None, None, None
+            dec = dec[:E]
         return dec, tr_t.movedim(-1, 0), cl_t.movedim(-1, 0)
 
     def metrics(dec, tr, cl):
@@ -117,13 +139,16 @@ def make_score_fn(dcae, lat_w: torch.Tensor, field_stats=None,
                 t0 = sync() if stats is not None else 0.0
                 dec, tr, cl = per_lead(z[t], truth[t], climate[t])
                 t1 = sync() if stats is not None else 0.0
-                per.append(metrics(dec, tr, cl))
+                if dec is not None:
+                    per.append(metrics(dec, tr, cl))
                 del dec
                 if stats is not None:
                     t2 = sync()
                     t_dec, t_score = t_dec + t1 - t0, t_score + t2 - t1
         if stats is not None:
             stats.update(decode_s=t_dec, score_s=t_score)
+        if not per:  # a rank that decoded for rank 0
+            return None
         # each metric (C, ...) per lead -> (C, T, ...)
         return {k: torch.stack([m[k] for m in per], dim=1) for k in per[0]}
 
@@ -203,15 +228,15 @@ def build_parser() -> argparse.ArgumentParser:
                     help="also spread and spread/skill, rank histograms and "
                          "zonal power spectra of ens-mean and truth")
     ap.add_argument("--device", default="cuda")
-    # flags of the JAX CLI whose modules are not ported yet
+    ap.add_argument("--shard_ensemble", action="store_true",
+                    help="split each init time's member decode over the "
+                         "ranks, rather than the init times")
+    # a flag of the JAX CLI whose module is not ported yet
     ap.add_argument("--plot_diagnostics", default=None, metavar="PNG")
-    ap.add_argument("--shard_ensemble", action="store_true")
     return ap
 
 
 _NOT_PORTED = [
-    (lambda a: a.shard_ensemble,
-     "--shard_ensemble: parallelism waits for ROADMAP.md Queue 1 item M12"),
     (lambda a: a.plot_diagnostics,
      "--plot_diagnostics: utils/visualization.py waits for ROADMAP.md "
      "Queue 1 item M13 (part c, visualization)"),
@@ -265,7 +290,9 @@ def run(args: argparse.Namespace) -> dict:
     for unsupported, msg in _NOT_PORTED:
         if unsupported(args):
             raise NotImplementedError(msg)
-    device = resolve_device(args.device)
+    dist.initialize(device=args.device)
+    device = dist.local_device(resolve_device(args.device))
+    rank = dist.process_index()
     from ladcast_torch.cli.pred_rollout import _load_any_params, open_field_source
 
     truth_src, _ = open_field_source(args.truth)
@@ -282,8 +309,11 @@ def run(args: argparse.Namespace) -> dict:
                    if args.end_date else args.total_lead_time_hour)
     files = filter_latent_files(files, args.start_date, args.end_date,
                                 lead_budget)
+    if not args.shard_ensemble:
+        files = dist.shard_list(files)
     lat_w = torch.as_tensor(grid_lat_weights("cos"), dtype=torch.float32)
-    score_fn = make_score_fn(dcae, lat_w, diagnostics=args.diagnostics)
+    score_fn = make_score_fn(dcae, lat_w, diagnostics=args.diagnostics,
+                             shard_ensemble=args.shard_ensemble)
     scored, records = [], []
     for f in files:
         t0 = time.perf_counter()
@@ -315,20 +345,24 @@ def run(args: argparse.Namespace) -> dict:
         m = score_fn(np.ascontiguousarray(lat, np.float32),
                      np.asarray(truth, np.float32), np.asarray(cl, np.float32),
                      stats)
-        scored.append({k: v.cpu().numpy() for k, v in m.items()})
-        records.append({"init_time": ts, "scored": True, **stats,
+        if m is not None:
+            scored.append({k: v.cpu().numpy() for k, v in m.items()})
+        records.append({"init_time": ts, "scored": m is not None, **stats,
                         "seconds": time.perf_counter() - t0})
         print(json.dumps(records[-1]), flush=True)
 
-    # one process: its shard files are rank 0's, merged as the JAX CLI's
-    # host 0 merges every rank's
+    # every rank writes its shard files; after the barrier rank 0 merges
+    # them (processes may skip different numbers of init times)
     os.makedirs(args.output_dir, exist_ok=True)
     keys = list(METRIC_KEYS) + (list(DIAGNOSTIC_KEYS) if args.diagnostics else [])
     for k in keys:
         stacked = (np.stack([m[k] for m in scored]) if scored
                    else np.zeros((0, 1, 1), np.float32))  # (N, C, T, ...)
-        np.save(os.path.join(args.output_dir, f"{k}.rank0.npy"), stacked)
-    merged = merge_rank_shards(args.output_dir, keys, 1)
+        np.save(os.path.join(args.output_dir, f"{k}.rank{rank}.npy"), stacked)
+    dist.barrier("scorer-shards-written")
+    if rank != 0:
+        return {"summary": None, "num_init_times": None, "records": records}
+    merged = merge_rank_shards(args.output_dir, keys, dist.process_count())
     if merged["crps"].shape[0] == 0:
         raise SystemExit("no init time was scored: check --latent_dir and "
                          "--truth")

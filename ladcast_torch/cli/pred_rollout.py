@@ -7,8 +7,8 @@
 
 Builds the evaluation init-time list (N samples per month at 00z / 12z, of
 ``--year`` or of a date range), loads the DiT and the DCAE, runs the
-ensemble rollout per init time on one device (CUDA unless ``--device cpu``
-is given) and writes per init time ``latent_<ts>.npy``, (ens, C, T+1, h, w)
+ensemble rollout per init time on CUDA unless ``--device cpu`` is given
+and writes per init time ``latent_<ts>.npy``, (ens, C, T+1, h, w)
 in the reference layout (channels first, physical latent scale, t=0 = the
 encoded analysis), and with ``--decode`` ``fields_<ts>.npz``, the decoded
 fields in physical units with their coordinates.
@@ -19,6 +19,12 @@ and ``timestamps`` (YYYYMMDDHH ints), or a directory of monthly tars
 ``data.era5_tar``). ``--int8_matmuls`` runs the DiT's transformer-block
 matmuls as dynamic w8a8 int8 products (``ops.quant``): an opt-in
 approximation of the exact forecast.
+
+Over N ranks (``torchrun --nproc_per_node N``, one process per card): the
+init times are strided over the ranks and each rank writes its own init
+times' files, which equal a one-process run's (the per-init seed); with
+``--shard_ensemble`` every rank works on every init time, each on its
+ceil(E / N) members (``rollout.pipeline``), and rank 0 writes the files.
 
 :func:`main` parses the arguments; :func:`run` forecasts from parsed
 arguments and returns one record per init time.
@@ -46,6 +52,7 @@ from ladcast_torch.config import (
 from ladcast_torch.data import time_utils, transforms
 from ladcast_torch.evaluate.export import decoded_to_npz
 from ladcast_torch.models import hub
+from ladcast_torch.parallel import dist
 from ladcast_torch.rollout.engine import stream_seed
 from ladcast_torch.rollout.pipeline import ForecastPipeline
 
@@ -132,14 +139,13 @@ def build_parser() -> argparse.ArgumentParser:
                     help="approximate: dynamic w8a8 int8 matmuls in the DiT's "
                          "transformer blocks (ops/quant.py); validate skill "
                          "before production use")
-    # a flag of the JAX CLI whose module is not ported yet
-    ap.add_argument("--shard_ensemble", action="store_true")
+    ap.add_argument("--shard_ensemble", action="store_true",
+                    help="split each init time's members over the ranks, "
+                         "rather than the init times")
     return ap
 
 
 _NOT_PORTED = [
-    (lambda a: a.shard_ensemble,
-     "--shard_ensemble: parallelism waits for ROADMAP.md Queue 1 item M12"),
     (lambda a: not (a.data.endswith(".npz") or os.path.isdir(a.data)),
      "--data: .npz bundles and tar directories are ported; zarr stores wait "
      "for ROADMAP.md Queue 1 item M13 (part c, xarray)"),
@@ -204,7 +210,9 @@ def run(args: argparse.Namespace, compute_dtype: str = "bfloat16") -> list:
     for unsupported, msg in _NOT_PORTED:
         if unsupported(args):
             raise NotImplementedError(msg)
-    device = resolve_device(args.device)
+    dist.initialize(device=args.device)
+    device = dist.local_device(resolve_device(args.device))
+    rank0 = dist.process_index() == 0
 
     def sync():
         if device.type == "cuda":
@@ -233,7 +241,8 @@ def run(args: argparse.Namespace, compute_dtype: str = "bfloat16") -> list:
     pipe = ForecastPipeline(dit_cfg, dcae_cfg, EDMSchedulerConfig(), rcfg,
                             dit_params, dcae_params,
                             compute_dtype=compute_dtype,
-                            host_step=args.host_step, device=device)
+                            host_step=args.host_step, device=device,
+                            shard_ensemble=args.shard_ensemble)
     del dit_params, dcae_params
     records = [{"loaded": True, "load_s": sync() - t0}]
     print(json.dumps(records[0]), flush=True)
@@ -252,6 +261,11 @@ def run(args: argparse.Namespace, compute_dtype: str = "bfloat16") -> list:
     else:
         init_times = time_utils.filter_eval_timestamps(
             [args.year], args.num_samples_per_month)
+    if not args.shard_ensemble:
+        init_times = dist.shard_list(init_times)
+    # the rank that writes this run's files: each its own, or rank 0 the
+    # gathered ensembles
+    writes = rank0 or not args.shard_ensemble
 
     os.makedirs(args.output_dir, exist_ok=True)
     fm, fs = static_data.era5_mean_std()
@@ -275,6 +289,11 @@ def run(args: argparse.Namespace, compute_dtype: str = "bfloat16") -> list:
         stats = {}
         traj, decoded, z_phys = pipe.forecast_from_fields(
             fields, ts, stream_seed(args.seed, ts), decode=decode, stats=stats)
+        if not writes:
+            records.append({"init_time": ts, **stats,
+                            "seconds": round(time.perf_counter() - t0, 2)})
+            print(json.dumps(records[-1]), flush=True)
+            continue
 
         # Prepend the t=0 encoded analysis frame; channels first
         # (ens, C, T+1, h, w), PHYSICAL latent scale: the reference's npy

@@ -6,8 +6,11 @@
 Trains the DiT of the config's ``ar_model`` on latents (an ``.npz`` with
 ``latents`` (time, h, w, C) and ``timestamps`` (time,) YYYYMMDDHH, or a
 directory of ``.npy`` shards (time, h, w, C) in name order plus
-``timestamps.npy``, read through ``--reader``) on one device: CUDA unless
-``--device cpu`` is given. fp32 master weights with
+``timestamps.npy``, read through ``--reader``) on CUDA unless ``--device
+cpu`` is given: one device, or one process per card under ``torchrun
+--nproc_per_node N`` with ``--mesh`` / ``--zero`` / the yaml's
+``parallel:`` section (``parallel.sharding_rules``: DDP, FSDP or HSDP).
+fp32 master weights with
 ``--compute_dtype`` compute, AdamW with global-norm clip 1.0 and the
 config's LR schedule, EMA, torch checkpoints with rotation under
 ``<output_dir>/ckpts``, and one JSON line per logged step in
@@ -41,6 +44,8 @@ from ladcast_torch.data.latent_dataset import (
     ShardedLatentSource,
     batch_iterator,
 )
+from ladcast_torch.parallel import dist
+from ladcast_torch.parallel.mesh import make_mesh_from_spec, mesh_sizes
 from ladcast_torch.train import checkpoint as ckpt
 from ladcast_torch.train.optim import make_optimizer
 from ladcast_torch.train.trainer_ar import ARTrainConfig, make_ar_train_step
@@ -125,52 +130,53 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--reader", default="auto", choices=["auto", "native", "mmap"],
                     help="the reader of a shard directory: native (the C++ "
                          "pread pool), mmap (numpy), auto (native, else mmap)")
-    # flags of the JAX CLI whose module is not ported yet
-    ap.add_argument("--mesh", default=None)
-    ap.add_argument("--zero", action=argparse.BooleanOptionalAction, default=None)
+    ap.add_argument("--mesh", default=None,
+                    help="mesh over the ranks, e.g. data=-1 or data=-1,model=8 "
+                         "(default: the yaml's parallel.mesh, else data=-1)")
+    ap.add_argument("--zero", action=argparse.BooleanOptionalAction, default=None,
+                    help="shard parameters, gradients, moments and EMA over "
+                         "the data axis (FSDP); default: the yaml's "
+                         "parallel.zero, else on when the model axis > 1")
     return ap
 
 
-_NOT_PORTED = [
-    (lambda a: a.mesh or a.zero,
-     "--mesh / --zero: parallelism waits for ROADMAP.md Queue 1 item M12"),
-]
-
-
-def _check_parallel(par_cfg: dict) -> None:
-    """The yaml's ``parallel:`` section, read as the JAX CLI reads it
-    (``mesh`` as a mapping or an "axis=size,..." string, ``zero``). The
-    port trains on one device: a mesh of a ``data`` axis of size 1 (or -1,
-    which fills the one device) trains as if there were no section; any
-    other axis of a size other than 1, or ``zero: true``, raises, as
-    ``--mesh`` and ``--zero`` do."""
-    mesh = par_cfg.get("mesh") or {}
-    if isinstance(mesh, str):
-        pairs = [part.partition("=") for part in mesh.split(",")]
-        sizes = {k.strip(): int(v) if v else -1 for k, _, v in pairs}
-    else:
-        sizes = {str(k): int(v) for k, v in mesh.items()}
-    if (par_cfg.get("zero") or sizes.pop("data", 1) not in (-1, 1)
-            or any(n != 1 for n in sizes.values())):
-        raise NotImplementedError(
-            f"parallel: {par_cfg} in the config: tensor parallelism and ZeRO "
-            f"wait for ROADMAP.md Queue 1 item M12 (parallelism); the port "
-            f"trains on one device, so drop the section to train there")
+def parallel_setup(cfg: dict, args: argparse.Namespace, device: torch.device):
+    """(mesh, zero, data size) from ``--mesh`` / ``--zero``, else the yaml's
+    ``parallel:`` section, read as the JAX CLI reads it: the mesh must have
+    a ``data`` axis, and ``zero`` defaults to on when ``model`` > 1. The
+    sizes must multiply to the world size (one process without a process
+    group: 1, and no mesh)."""
+    par_cfg = cfg.get("parallel") or {}
+    spec = args.mesh or par_cfg.get("mesh") or {"data": -1}
+    sizes = dict(mesh_sizes(spec, dist.process_count()))
+    if "data" not in sizes:
+        raise SystemExit(f"mesh {spec!r} must include a 'data' axis")
+    zero = args.zero if args.zero is not None else bool(
+        par_cfg.get("zero", sizes.get("model", 1) > 1))
+    return make_mesh_from_spec(spec, device.type), zero, sizes["data"]
 
 
 def export_hub(hub_dir: str, model_cfg, tcfg: ARTrainConfig, state) -> None:
     """The diffusers-layout export of a training state: ``ar_model/`` and,
     with EMA, ``ar_model_ema/`` with the EMA metadata in its config.json,
-    as the reference's training hooks write them."""
+    as the reference's training hooks write them. The weights are gathered
+    whole (a collective under a process group, so every rank calls this)
+    and rank 0 writes them."""
     from ladcast_torch.models import hub
+    from ladcast_torch.parallel.sharding_rules import full_tensors
 
-    hub.save_pretrained(os.path.join(hub_dir, "ar_model"), "dit", model_cfg,
-                        state.model.state_dict())
+    params = dist.full_state_dict(state.model)
+    ema = None
     if state.ema is not None:
         names = [n for n, _ in state.model.named_parameters()]
+        ema = dict(zip(names, full_tensors(state.ema.params,
+                                           list(state.model.parameters()))))
+    if dist.process_index() != 0:
+        return
+    hub.save_pretrained(os.path.join(hub_dir, "ar_model"), "dit", model_cfg, params)
+    if ema is not None:
         hub.save_pretrained(
-            os.path.join(hub_dir, "ar_model_ema"), "dit", model_cfg,
-            dict(zip(names, state.ema.params)),
+            os.path.join(hub_dir, "ar_model_ema"), "dit", model_cfg, ema,
             ema_metadata={"decay": tcfg.ema_max_decay, "power": tcfg.ema_power,
                           "inv_gamma": tcfg.ema_inv_gamma,
                           "update_after_step": tcfg.ema_update_after_step,
@@ -240,7 +246,25 @@ def make_validation(args, sched_cfg, wcfg, tcfg, cfg, device):
         model = state.model
         names = [n for n, _ in model.named_parameters()]
         weights = (state.ema.params if state.ema is not None
-                   else list(model.parameters()))
+                   else state.optimizer.params)
+        if state.regime in ("fsdp", "hsdp"):
+            # sharded weights: gathered whole (every rank), validated by an
+            # unsharded copy on rank 0, the record sent to every rank
+            import torch.distributed as tdist
+            from ladcast_torch.models import hub
+            from ladcast_torch.parallel.sharding_rules import full_tensors
+
+            full = full_tensors(weights, list(model.parameters()))
+            rec = [None]
+            if dist.process_index() == 0:
+                plain = hub.build_model("dit", model.cfg, dict(zip(names, full)),
+                                        device, c_dtype)
+                rec = [summarize(validate_ar_model(
+                    lambda x, c, k, y: plain(x.to(c_dtype), c, k.to(c_dtype), y).float(),
+                    vin, vtg, vyp, 1234, sched_cfg, rcfg, **decode))]
+                del plain
+            tdist.broadcast_object_list(rec, src=0)
+            return rec[0]
         cast = {n: p.to(c_dtype) for n, p in zip(names, weights)}
 
         def net_fn(latents, c_noise, cond, yp):
@@ -248,8 +272,10 @@ def make_validation(args, sched_cfg, wcfg, tcfg, cfg, device):
                 model, cast, (latents.to(c_dtype), c_noise, cond.to(c_dtype),
                               yp)).float()
 
-        m = validate_ar_model(net_fn, vin, vtg, vyp, 1234, sched_cfg, rcfg,
-                              **decode)
+        return summarize(validate_ar_model(net_fn, vin, vtg, vyp, 1234, sched_cfg,
+                                           rcfg, **decode))
+
+    def summarize(m) -> dict:
         rec = {"val_latent_rmse": float(m["latent_rmse"].mean()),
                "val_latent_crps": float(m["latent_crps"].mean())}
         if decode:
@@ -272,16 +298,14 @@ def run(cfg: dict, args: argparse.Namespace) -> dict:
     "history": one record per logged step, "train_step": the step function
     (see ``train.trainer_ar.make_ar_train_step``), "validations": one
     record per validation (``--val_every`` with ``--val_latents``)}."""
-    for unsupported, msg in _NOT_PORTED:
-        if unsupported(args):
-            raise NotImplementedError(msg)
-    _check_parallel(cfg.get("parallel") or {})
     model_cfg = config_from_dict(LaDCastDiTConfig, cfg.get("ar_model", {}))
     if model_cfg.int8_matmuls:
         raise SystemExit("int8_matmuls is an inference-only path (the int8 "
                          "round and cast are not differentiable); remove it "
                          "from the ar_model training config")
-    device = resolve_device(args.device)
+    dist.initialize(device=args.device)
+    device = dist.local_device(resolve_device(args.device))
+    mesh, zero, n_data = parallel_setup(cfg, args, device)
     sched_cfg = config_from_dict(EDMSchedulerConfig,
                                  cfg.get("noise_scheduler", {}).get("params", {}))
     ns_cfg = config_from_dict(NoiseSamplerConfig, cfg.get("noise_sampler", {}))
@@ -323,7 +347,7 @@ def run(cfg: dict, args: argparse.Namespace) -> dict:
         min_lr=float(lr_cfg.get("min_lr", 0.0)),
     )
     init_fn, train_step = make_ar_train_step(model_cfg, sched_cfg, ns_cfg,
-                                             tcfg, optimizer, device)
+                                             tcfg, optimizer, device, mesh, zero)
 
     lm, ls = static_data.latent_mean_std()
     source = load_latent_source(args.latents or dl_cfg.get("ds_path"), args.reader)
@@ -333,12 +357,17 @@ def run(cfg: dict, args: argparse.Namespace) -> dict:
         interval_between_pred=dl_cfg.get("interval_between_pred", 6),
         sampling_interval=dl_cfg.get("sampling_interval", 1))
     dataset = ARLatentDataset(source, wcfg, mean=lm, std=ls, target_std=0.5)
-    batch_size = dl_cfg.get("batch_size", 4)
+    # the global batch is batch_size per data replica; every rank computes
+    # the same seeded order and reads its rows (a model group's ranks the
+    # same rows)
+    global_bs = dl_cfg.get("batch_size", 4) * n_data
+    rows = dist.batch_feed_slice(mesh, global_bs)
     shuffle = dl_cfg.get("shuffle", True)
 
     def epoch(seed):
-        return batch_iterator(dataset, batch_size, shuffle=shuffle, seed=seed,
-                              num_push_forward_steps=tcfg.num_push_forward_steps)
+        return batch_iterator(dataset, global_bs, shuffle=shuffle, seed=seed,
+                              num_push_forward_steps=tcfg.num_push_forward_steps,
+                              batch_slice=rows)
 
     state = init_fn(args.seed)
     mgr = ckpt.make_manager(os.path.join(out_dir, "ckpts"),
@@ -349,18 +378,20 @@ def run(cfg: dict, args: argparse.Namespace) -> dict:
     elif args.init_weights:
         from ladcast_torch.cli.pred_rollout import _load_any_params
 
-        raw, _ = _load_any_params(args.init_weights, "dit", model_cfg)
-        state.model.load_state_dict(raw, strict=True)
+        raw = None
+        if dist.process_index() == 0:
+            raw, _ = _load_any_params(args.init_weights, "dit", model_cfg)
+        state.load_full_params(raw)
         if state.ema is not None:
             with torch.no_grad():
-                torch._foreach_copy_(state.ema.params,
-                                     list(state.model.parameters()))
+                torch._foreach_copy_(state.ema.params, state.optimizer.params)
     start_step = state.step
     run_validation = None
     if args.val_every and args.val_latents:
         run_validation = make_validation(args, sched_cfg, wcfg, tcfg, cfg, device)
     validations = []
-    logger = MetricLogger(out_dir, config=cfg)
+    # rank 0 writes the metrics
+    logger = MetricLogger(out_dir if dist.process_index() == 0 else None, config=cfg)
     ckpt_every = gen_cfg.get("checkpointing_steps", 50000)
     timer = PhaseTimer()
     history = []

@@ -5,8 +5,10 @@
         --data era5.npz [--val_data val.npz] [--num_steps N] \\
         [--resume latest | --init_weights <dir>] [--device cpu]
 
-Trains the config's ``encdec`` autoencoder on one device (CUDA unless
-``--device cpu`` is given) from raw fields in an ``.npz`` bundle or a
+Trains the config's ``encdec`` autoencoder on CUDA unless ``--device
+cpu`` is given, on one device or data-parallel over the ranks of
+``torchrun --nproc_per_node N`` (the yaml's ``parallel.mesh`` may name the
+``data`` axis only; ``train.batch_size`` is per rank), from raw fields in an ``.npz`` bundle or a
 directory of monthly tars (``data.era5_tar``). A tar directory gives its
 ``train`` split (1979-2017) unless ``--split`` says otherwise and, without
 ``--val_data``, validates on its ``--val_split`` (2018), as the reference
@@ -38,6 +40,8 @@ import torch
 from ladcast_torch import channels as ch, resolve_device, static_data
 from ladcast_torch.config import DCAEConfig, config_from_dict
 from ladcast_torch.data import transforms
+from ladcast_torch.parallel import dist
+from ladcast_torch.parallel.mesh import make_mesh_from_spec
 from ladcast_torch.train import checkpoint as ckpt
 from ladcast_torch.train.optim import decoder_only_mask, make_optimizer
 from ladcast_torch.train.trainer_dcae import DCAETrainConfig, make_dcae_train_step
@@ -87,10 +91,14 @@ def run(cfg: dict, args: argparse.Namespace) -> dict:
     "history": one record per logged step, "validations": one record per
     validation, "train_step": the step function}."""
     from ladcast_torch.cli.pred_rollout import _load_any_params, open_field_source
-    from ladcast_torch.cli.train_ar import _check_parallel
 
-    _check_parallel(cfg.get("parallel") or {})
-    device = resolve_device(args.device)
+    dist.initialize(device=args.device)
+    device = dist.local_device(resolve_device(args.device))
+    par_cfg = cfg.get("parallel") or {}
+    if par_cfg.get("zero"):
+        raise ValueError(f"parallel: {par_cfg}: the DCAE trains data-parallel "
+                         f"only, so zero does not apply")
+    mesh = make_mesh_from_spec(par_cfg.get("mesh") or {"data": -1}, device.type)
     dcae_cfg = config_from_dict(DCAEConfig, cfg.get("encdec", {}))
     train_cfg = cfg.get("train", {})
     opt_cfg = cfg.get("optimizer", {})
@@ -120,7 +128,11 @@ def run(cfg: dict, args: argparse.Namespace) -> dict:
         trainable_mask=(decoder_only_mask if train_cfg.get("ft_decoder_only")
                         else None))
     init_fn, train_step, eval_step = make_dcae_train_step(
-        dcae_cfg, tcfg, optimizer, device)
+        dcae_cfg, tcfg, optimizer, device, mesh=mesh)
+    # the global batch: batch_size per rank; every rank draws the same
+    # frames from the seeded generator and reads its rows
+    global_bs = bs * dist.process_count()
+    rows = dist.host_local_slice(global_bs)
 
     split = args.split or ("train" if os.path.isdir(args.data) else None)
     src, all_ts = open_field_source(args.data, split=split)
@@ -133,28 +145,31 @@ def run(cfg: dict, args: argparse.Namespace) -> dict:
     def make_batch(ts_chunk, source=src):
         """Normalized fields with the SST NaNs at -2, the NaN mask, and the
         statics, on the device."""
-        x = transforms.normalize(source.frames_at(np.asarray(ts_chunk)), fm, fs)
+        x = transforms.normalize(source.frames_at(np.asarray(ts_chunk)[rows]), fm, fs)
         nan_mask = np.isnan(x[..., ch.SST_CHANNEL_INDEX])
         x = np.where(np.isnan(x), -2.0, x).astype(np.float32)
         return (torch.from_numpy(x).to(device),
                 torch.from_numpy(nan_mask).to(device), statics)
 
     rng = np.random.RandomState(args.seed)
-    batch = make_batch(rng.choice(all_ts, bs, replace=False))
+    batch = make_batch(rng.choice(all_ts, global_bs, replace=False))
     state = init_fn(args.seed)
     mgr = ckpt.make_manager(os.path.join(out_dir, "ckpts"))
     if args.resume:
         ckpt.restore_state(mgr, state,
                            None if args.resume == "latest" else int(args.resume))
     elif args.init_weights:
-        raw, _ = _load_any_params(args.init_weights, "dcae", dcae_cfg)
-        state.model.load_state_dict(raw, strict=True)
+        raw = None
+        if dist.process_index() == 0:
+            raw, _ = _load_any_params(args.init_weights, "dcae", dcae_cfg)
+        state.load_full_params(raw)
         if state.ema is not None:
             with torch.no_grad():
                 torch._foreach_copy_(state.ema.params,
                                      list(state.model.parameters()))
 
-    logger = MetricLogger(out_dir, config=cfg)
+    rank0 = dist.process_index() == 0
+    logger = MetricLogger(out_dir if rank0 else None, config=cfg)
     validations = []
     val_src = None
     if args.val_data:
@@ -184,12 +199,17 @@ def run(cfg: dict, args: argparse.Namespace) -> dict:
         val_params = state.ema.params if state.ema is not None else None
         total = {"loss": 0.0, "mse": 0.0, "lw_mse": 0.0}
         n = 0
-        for i in range(0, len(val_ts) - bs + 1, bs):
-            ev = eval_step(model, make_batch(val_ts[i:i + bs], val_src), val_params)
-            total["loss"] += float(ev["loss"]) * bs
-            total["mse"] = total["mse"] + ev["channel_mse"].cpu().numpy() * bs
-            total["lw_mse"] = total["lw_mse"] + ev["channel_lw_mse"].cpu().numpy() * bs
-            n += bs
+        for i in range(0, len(val_ts) - global_bs + 1, global_bs):
+            ev = eval_step(model, make_batch(val_ts[i:i + global_bs], val_src),
+                           val_params)
+            # the global batch's means: each rank's rows averaged over ranks
+            dist.all_reduce_mean_([ev["loss"], ev["channel_mse"],
+                                   ev["channel_lw_mse"]])
+            total["loss"] += float(ev["loss"]) * global_bs
+            total["mse"] = total["mse"] + ev["channel_mse"].cpu().numpy() * global_bs
+            total["lw_mse"] = (total["lw_mse"]
+                               + ev["channel_lw_mse"].cpu().numpy() * global_bs)
+            n += global_bs
         if n == 0:
             return
         val_loss = total["loss"] / n
@@ -203,19 +223,26 @@ def run(cfg: dict, args: argparse.Namespace) -> dict:
         validations.append({"step": step, **logs})
         if val_loss < best_val_loss:
             best_val_loss = val_loss
-            existing = sorted((d for d in os.listdir(best_dir)
-                               if d.startswith("step-")),
-                              key=lambda d: int(d.split("-")[1]))
-            for d in existing[: max(len(existing) - (BEST_KEPT - 1), 0)]:
-                shutil.rmtree(os.path.join(best_dir, d))
-            from ladcast_torch.models import hub
+            if rank0:  # rank 0 writes, the others wait for it
+                save_best(step, model, val_params)
+            dist.barrier("best-val-ckpt")
 
-            weights = (dict(zip([k for k, _ in model.named_parameters()],
-                                val_params))
-                       if val_params is not None else model.state_dict())
-            hub.save_pretrained(os.path.join(best_dir, f"step-{step}"), "dcae",
-                                dcae_cfg, {k: v.detach().cpu()
-                                           for k, v in weights.items()})
+    def save_best(step, model, val_params):
+        """The weights of a new best validation loss as ``best/step-<step>``,
+        the oldest beyond BEST_KEPT removed."""
+        existing = sorted((d for d in os.listdir(best_dir)
+                           if d.startswith("step-")),
+                          key=lambda d: int(d.split("-")[1]))
+        for d in existing[: max(len(existing) - (BEST_KEPT - 1), 0)]:
+            shutil.rmtree(os.path.join(best_dir, d))
+        from ladcast_torch.models import hub
+
+        weights = (dict(zip([k for k, _ in model.named_parameters()],
+                            val_params))
+                   if val_params is not None else model.state_dict())
+        hub.save_pretrained(os.path.join(best_dir, f"step-{step}"), "dcae",
+                            dcae_cfg, {k: v.detach().cpu()
+                                       for k, v in weights.items()})
 
     ckpt_every = gen_cfg.get("checkpointing_steps", 40000)
     timer = PhaseTimer()
@@ -227,7 +254,7 @@ def run(cfg: dict, args: argparse.Namespace) -> dict:
             # a fresh batch every subbatch_steps steps, reused in between
             if step % tcfg.subbatch_steps == 0 and step > 0:
                 with timer.phase("data"):
-                    batch = make_batch(rng.choice(all_ts, bs, replace=False))
+                    batch = make_batch(rng.choice(all_ts, global_bs, replace=False))
             with timer.phase("step_dispatch"):
                 aux = train_step(state, batch, args.seed)
             step = state.step

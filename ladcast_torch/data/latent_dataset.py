@@ -161,6 +161,7 @@ def batch_iterator(
     shuffle: bool = True,
     seed: int = 0,
     num_push_forward_steps: int = 1,
+    batch_slice: Optional[slice] = None,
 ) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
     """Yield one epoch of full (initial_profile, clean, year_progress)
     numpy batches, year_progress (B, num_push_forward_steps) float32: the
@@ -168,7 +169,12 @@ def batch_iterator(
     batches are read ahead on a thread, which has stopped when closing the
     generator returns; an error there is raised here. Before it reads a
     batch, the thread asks ``dataset.prefetch`` (where the dataset has one)
-    for the next batch's frames."""
+    for the next batch's frames.
+
+    ``batch_slice`` keeps only those rows of each batch of the seeded order
+    (the same order on every process): a rank's part of a global batch
+    (``parallel.dist.batch_feed_slice``); the readahead asks for only that
+    part too."""
     q: queue_mod.Queue = queue_mod.Queue(maxsize=2)
     stop = threading.Event()
 
@@ -187,11 +193,12 @@ def batch_iterator(
             else np.arange(len(dataset))
         n = len(order) - len(order) % batch_size
         pf = getattr(dataset, "prefetch", None)
+        rows = slice(None) if batch_slice is None else batch_slice
         for s in range(0, n, batch_size):
             if pf is not None and s + batch_size < n:
-                pf(order[s + batch_size:s + 2 * batch_size])
+                pf(order[s + batch_size:s + 2 * batch_size][rows])
             inps, outs, yps = [], [], []
-            for i in order[s:s + batch_size]:
+            for i in order[s:s + batch_size][rows]:
                 inp, out, ts = dataset[int(i)]
                 inps.append(inp)
                 outs.append(out)

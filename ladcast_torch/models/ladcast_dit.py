@@ -21,7 +21,8 @@ Quirks the weights depend on, kept as in the reference:
 
 Frames are channels-last (B, T, H, W, C); tokens (B, S, D); attention BSHD.
 Parameter names are the reference diffusers ones. With ``cfg.remat`` each
-dual- and single-stream block is a gradient checkpoint while grad is on.
+dual- and single-stream block is a gradient checkpoint while grad is on (a
+block that is an FSDP unit checkpoints itself inside its unit).
 With ``cfg.int8_matmuls`` the projections the JAX package quantises run
 as int8 products (``ops.quant.QuantizableDense``): the dual-stream
 blocks' q/k/v, added q/k/v, output projections and both feed-forwards,
@@ -38,6 +39,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.distributed.fsdp import FSDPModule
 from torch.utils.checkpoint import checkpoint
 
 from ladcast_torch.config import LaDCastDiTConfig
@@ -517,17 +519,23 @@ class LaDCastTransformer3D(nn.Module):
             ye = self.time_elapsed_embed(year_sincos_embedding(yp, 256))
             scale, shift = ye.chunk(2, dim=-1)
             temb = temb * (1 + scale) + shift
-        temb = temb.to(latents.dtype)
 
+        # each block gets its own compute-dtype copy of temb, so temb's
+        # gradient is one term per block, summed over the blocks in fp32;
+        # a block that is an FSDP unit (parallel.sharding_rules.shard_dit)
+        # then sums it as a plain module does, and it checkpoints itself
         remat = cfg.remat and torch.is_grad_enabled()
         for block in self.transformer_blocks:
-            args = (x, cond, temb, rope_table, pred_bias)
-            x, cond = _remat(block, *args) if remat else block(*args)
+            args = (x, cond, temb.to(latents.dtype), rope_table, pred_bias)
+            x, cond = (_remat(block, *args) if remat and not isinstance(block, FSDPModule)
+                       else block(*args))
         for block in self.single_transformer_blocks:
-            args = (x, cond, temb, rope_table, cond_rope_table, pred_bias)
-            x, cond = _remat(block, *args) if remat else block(*args)
+            args = (x, cond, temb.to(latents.dtype), rope_table, cond_rope_table,
+                    pred_bias)
+            x, cond = (_remat(block, *args) if remat and not isinstance(block, FSDPModule)
+                       else block(*args))
 
-        scale, shift = self.norm_out(temb).chunk(2, dim=-1)
+        scale, shift = self.norm_out(temb.to(latents.dtype)).chunk(2, dim=-1)
         x = _modulate(layer_norm(x, None, None, 1e-7), shift, scale)
         x = self.proj_out(x)
         return x.reshape(B, T, H, W, cfg.out_channels)

@@ -11,7 +11,9 @@ drives: the two give the same trajectory).
 
 Reproducible ensembles: member i of repetition r draws its noise from its
 own ``torch.Generator``, seeded from (seed, r, i) alone, so member i's
-stream is the same whatever the ensemble size or batch split. Tests pass
+stream is the same whatever the ensemble size or batch split; a rank that
+rolls out members ``member_offset`` onwards (``rollout.pipeline``'s member
+sharding) draws member i's noise from its global index. Tests pass
 the noise in instead (``noise`` / ``rep_noise`` / ``pert_noise``) to hold
 the rollout against the JAX engine, whose PRNG differs.
 """
@@ -39,12 +41,13 @@ def stream_seed(*entropy: int) -> int:
 
 
 def member_noise(seed: int, num_members: int, shape, device,
-                 dtype=torch.float32) -> torch.Tensor:
-    """(num_members, *shape) Gaussian noise; member i's draw depends only
-    on (seed, i)."""
+                 dtype=torch.float32, member_offset: int = 0) -> torch.Tensor:
+    """(num_members, *shape) Gaussian noise of the members ``member_offset``
+    onwards; member i's draw depends only on (seed, i)."""
     out = torch.empty((num_members, *shape), dtype=dtype, device=device)
     for i in range(num_members):
-        g = torch.Generator(device=device).manual_seed(stream_seed(seed, i))
+        g = torch.Generator(device=device).manual_seed(
+            stream_seed(seed, member_offset + i))
         out[i] = torch.randn(shape, generator=g, dtype=dtype, device=device)
     return out
 
@@ -52,22 +55,24 @@ def member_noise(seed: int, num_members: int, shape, device,
 def make_repetition_fn(sched_cfg: EDMSchedulerConfig, cfg: RolloutConfig):
     """One AR repetition:
 
-      rep_fn(net_fn, known, year_progress, rep_seed, noise=None)
-        -> (new_known, samples)
+      rep_fn(net_fn, known, year_progress, rep_seed, noise=None,
+             member_offset=0) -> (new_known, samples)
 
-    known (E, T_in, H, W, C); samples (E, T_out, H, W, C) in known's
-    dtype; ``noise`` (E, T_out, H, W, C) replaces the seeded draw.
+    known (E, T_in, H, W, C), the members ``member_offset`` onwards;
+    samples (E, T_out, H, W, C) in known's dtype; ``noise`` (E, T_out, H,
+    W, C) replaces the seeded draw.
     """
     if cfg.sampler_type not in ("edm", "dpm"):
         raise ValueError(f"sampler {cfg.sampler_type!r}: expected 'edm' or 'dpm'")
     traj_dtype = getattr(torch, cfg.trajectory_dtype)
 
     def rep_fn(net_fn, known, year_progress, rep_seed,
-               noise: Optional[torch.Tensor] = None):
+               noise: Optional[torch.Tensor] = None, member_offset: int = 0):
         E, T_in, H, W, C = known.shape
         shape = (cfg.return_seq_len, H, W, C)
         if noise is None:
-            noise = member_noise(rep_seed, E, shape, known.device, traj_dtype)
+            noise = member_noise(rep_seed, E, shape, known.device, traj_dtype,
+                                 member_offset)
         yp = torch.full((E,), float(year_progress), dtype=torch.float32,
                         device=known.device)
 
@@ -103,9 +108,11 @@ def ensemble_rollout_hostloop(
     latent_std: Optional[torch.Tensor] = None,
     rep_noise: Optional[torch.Tensor] = None,
     pert_noise: Optional[torch.Tensor] = None,
+    member_offset: int = 0,
 ) -> torch.Tensor:
     """Run ``cfg.num_repetitions`` repetitions from known_latents
-    (E, T_in, H, W, C). Returns (E, total_num_steps, H, W, C).
+    (E, T_in, H, W, C), the members ``member_offset`` onwards. Returns
+    (E, total_num_steps, H, W, C).
 
     With ``cfg.noise_level > 0`` the initial latent gets one perturbation,
     shared by all members, scaled by noise_level x the per-channel
@@ -130,7 +137,7 @@ def ensemble_rollout_hostloop(
     for r in range(n_reps):
         noise = None if rep_noise is None else rep_noise[r]
         known, samples = rep_fn(net_fn, known, year_progress[r],
-                                stream_seed(seed, r + 1), noise)
+                                stream_seed(seed, r + 1), noise, member_offset)
         outs.append(samples)
     return torch.cat(outs, dim=1)[:, : cfg.total_num_steps]
 
@@ -146,12 +153,14 @@ def ensemble_rollout(
     latent_std: Optional[torch.Tensor] = None,
     rep_noise: Optional[torch.Tensor] = None,
     pert_noise: Optional[torch.Tensor] = None,
+    member_offset: int = 0,
 ) -> torch.Tensor:
     """The whole AR ensemble forecast in one call: (E, T_in, H, W, C)
     normalized conditioning latents -> (E, total_num_steps, H, W, C)
     normalized forecast frames (lead times step_size_hour .. total; the t=0
     frame is the caller's input). ``seed`` takes the place of the JAX key;
-    the noise arguments are those of :func:`ensemble_rollout_hostloop`,
+    the noise arguments and ``member_offset`` (the global index of the
+    first of these members) are those of :func:`ensemble_rollout_hostloop`,
     whose trajectory this equals."""
     if rep_noise is not None:
         E, _, H, W, C = known_latents.shape
@@ -161,7 +170,7 @@ def ensemble_rollout(
     return ensemble_rollout_hostloop(
         make_repetition_fn(sched_cfg, cfg), net_fn, known_latents,
         year_progress, seed, cfg, latent_std=latent_std, rep_noise=rep_noise,
-        pert_noise=pert_noise)
+        pert_noise=pert_noise, member_offset=member_offset)
 
 
 def make_rollout_fn(net_fn: NetFn, sched_cfg: EDMSchedulerConfig,

@@ -1,9 +1,10 @@
 """End-to-end forecast pipeline: ERA5 fields -> DCAE encode -> latent
-ensemble rollout -> DCAE decode -> fields, all on one device (the port of
-``ladcast_tpu/rollout/pipeline.py``).
+ensemble rollout -> DCAE decode -> fields (the port of
+``ladcast_tpu/rollout/pipeline.py``), on one device or with the ensemble's
+members spread over the ranks of the process group
+(``shard_ensemble``, the JAX ``ens_mesh``).
 
-Every stage runs under ``torch.inference_mode``. Sharding the ensemble over
-several devices (the JAX ``ens_mesh``) is not ported.
+Every stage runs under ``torch.inference_mode``.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ from ladcast_torch.config import (
 )
 from ladcast_torch.data import time_utils, transforms
 from ladcast_torch.models import hub
+from ladcast_torch.parallel import dist
+from ladcast_torch.parallel.mesh import pad_to_multiple
 from ladcast_torch.rollout.engine import (
     ensemble_rollout,
     ensemble_rollout_hostloop,
@@ -50,6 +53,15 @@ class ForecastPipeline:
     programs; here both are the same loop and give the same trajectory.
 
     ``device``: CUDA unless the caller asks for the CPU.
+
+    ``shard_ensemble``: each rank of the process group rolls out and
+    decodes ceil(E / ranks) members, rank r those from r x that on; the
+    member axis is padded to a multiple of the ranks and the extras are
+    discarded, as the JAX package does. Member i draws its noise from its
+    global index, so the sharded ensemble is the unsharded one member for
+    member. :meth:`forecast_from_fields` gathers the trajectory (and the
+    decoded fields) to rank 0; the other ranks get None. Every rank loads
+    the weights once, here.
     """
 
     dit_cfg: LaDCastDiTConfig
@@ -61,6 +73,7 @@ class ForecastPipeline:
     compute_dtype: str = "bfloat16"
     host_step: bool = False
     device: object = "cuda"
+    shard_ensemble: bool = False
 
     def __post_init__(self):
         cdt = getattr(torch, self.compute_dtype)
@@ -128,14 +141,16 @@ class ForecastPipeline:
     def forecast_latents(self, known_latents_norm: torch.Tensor,
                          year_progress: Sequence[float], seed: int,
                          *, rep_noise: Optional[torch.Tensor] = None,
-                         pert_noise: Optional[torch.Tensor] = None):
+                         pert_noise: Optional[torch.Tensor] = None,
+                         member_offset: int = 0):
         """(E, T_in, 15, 30, 84) normalized conditioning latents ->
-        (E, total_steps, 15, 30, 84) normalized forecast latents. ``seed``
-        takes the place of the JAX key; the noise arguments replace the
-        seeded draws (``rollout.engine``)."""
+        (E, total_steps, 15, 30, 84) normalized forecast latents of the
+        members ``member_offset`` onwards. ``seed`` takes the place of the
+        JAX key; the noise arguments replace the seeded draws
+        (``rollout.engine``)."""
         known = known_latents_norm.to(self.device)
         noise = dict(latent_std=self.latent_std, rep_noise=rep_noise,
-                     pert_noise=pert_noise)
+                     pert_noise=pert_noise, member_offset=member_offset)
         if self.host_step:
             return ensemble_rollout_hostloop(
                 make_repetition_fn(self.sched_cfg, self.rollout_cfg),
@@ -157,7 +172,9 @@ class ForecastPipeline:
         prediction_timedelta 0); the trajectory does not include the t=0
         frame. With a ``stats`` dict the device is synchronised after each
         stage and the stage's wall seconds are recorded in it
-        (``encode_s``, ``rollout_s``, ``decode_s``).
+        (``encode_s``, ``rollout_s``, ``decode_s``, and under
+        ``shard_ensemble`` ``gather_s``). Under ``shard_ensemble`` the
+        trajectory and the decoded fields are rank 0's, None elsewhere.
         """
         def lap(name, t0):
             if stats is not None:
@@ -171,12 +188,29 @@ class ForecastPipeline:
         z_phys = self.encode_fields(fields)
         t = lap("encode_s", t)
         z = self.normalize_latent(z_phys)
-        known = z[None].expand(cfg.ensemble_size, *z.shape)
+        E = cfg.ensemble_size
+        per, offset = E, 0
+        if self.shard_ensemble:
+            per = pad_to_multiple(E, dist.process_count()) // dist.process_count()
+            offset = dist.process_index() * per
+            if noise.get("rep_noise") is not None:
+                rep = noise["rep_noise"]
+                pad = rep.new_zeros(rep.shape[0], per * dist.process_count() - E,
+                                    *rep.shape[2:])
+                noise["rep_noise"] = torch.cat([rep, pad], 1)[:, offset:offset + per]
+        known = z[None].expand(per, *z.shape)
         yp = time_utils.rollout_year_progress(
             init_ts_int, cfg.num_repetitions,
             cfg.step_size_hour * cfg.return_seq_len)
-        traj = self.forecast_latents(known, yp, seed, **noise)
+        traj = self.forecast_latents(known, yp, seed, member_offset=offset, **noise)
         t = lap("rollout_s", t)
         decoded = self.decode_latents(traj) if decode else None
-        lap("decode_s", t)
+        t = lap("decode_s", t)
+        if self.shard_ensemble:
+            traj = dist.gather_to_rank0(traj)
+            decoded = None if decoded is None else dist.gather_to_rank0(decoded)
+            if traj is not None:
+                traj = traj[:E]
+                decoded = None if decoded is None else decoded[:E]
+            lap("gather_s", t)
         return traj, decoded, z_phys

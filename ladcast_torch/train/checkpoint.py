@@ -6,6 +6,13 @@ A :class:`CheckpointManager` keeps the full training state of a step
 to a temporary name and renamed, and removes the oldest beyond
 ``max_to_keep``. :func:`save_params` / :func:`load_params` store a bare
 state dict (weights only). Files load with ``weights_only=True``.
+
+Under a process group the file is the same: :func:`save_state` gathers the
+whole state to rank 0 (FSDP shards included), which writes it, and
+:func:`restore_state` reads it on rank 0 and places each rank's part, so a
+checkpoint written by N ranks resumes in one process and the other way
+round. A single process writes what it always wrote: its own state dict,
+tensors on their device.
 """
 
 from __future__ import annotations
@@ -57,14 +64,30 @@ def make_manager(directory: str, max_to_keep: int = 3) -> CheckpointManager:
 
 
 def save_state(mgr: CheckpointManager, step: int, state) -> str:
-    """``state``: anything with ``state_dict()`` (the trainer's TrainState)."""
-    return mgr.save(step, state.state_dict())
+    """``state``: the trainer's TrainState (``full_state_dict()``, a
+    collective under a process group: every rank calls this)."""
+    from ladcast_torch.parallel import dist
+
+    sd = state.full_state_dict()
+    path = mgr.save(step, sd) if dist.process_index() == 0 else mgr.path(step)
+    dist.barrier("checkpoint-written")
+    return path
 
 
 def restore_state(mgr: CheckpointManager, state, step: Optional[int] = None):
     """Load a saved step (the latest by default) into ``state`` in place;
-    returns it."""
-    state.load_state_dict(mgr.restore(step, map_location="cpu"))
+    returns it. Under a process group every rank calls this; rank 0 reads
+    the file."""
+    from ladcast_torch.parallel import dist
+
+    step = mgr.latest_step() if step is None else step
+    if step is None or not os.path.exists(mgr.path(step)):
+        # every rank raises, rather than rank 0 alone
+        raise FileNotFoundError(f"no checkpoint of step {step} in {mgr.directory}")
+    sd = None
+    if dist.process_index() == 0:
+        sd = mgr.restore(step, map_location="cpu")
+    state.load_full_state_dict(sd)
     return state
 
 

@@ -3,6 +3,9 @@
 decay_t = clip(1 - (1 + t/inv_gamma)^(-power), 0, max_decay), with the
 step counter offset by update_after_step. The average is updated in place
 with ``torch._foreach_lerp_``: e + (1 - d)(p - e) is JAX's e - (1 - d)(e - p).
+Under FSDP the trainers keep the average of each rank's local parameter
+shards (``sharding_rules.local``); the update is elementwise, so it is
+exact shard by shard.
 """
 
 from __future__ import annotations

@@ -16,7 +16,11 @@ package's ``make_optimizer`` builds them from optax
 
 The update runs in place with ``torch._foreach_*`` ops over the parameter
 list; the LR and bias corrections are host scalars, and the clip factor
-stays on the device.
+stays on the device. Under FSDP (``parallel.sharding_rules``) the
+parameters are DTensors: the optimizer keeps and updates their local
+shards, which is exact for every elementwise pass, and the global norm
+adds the shards' sums of squares over the shard group, so every rank clips
+by the norm of the whole model.
 """
 
 from __future__ import annotations
@@ -62,11 +66,24 @@ def polynomial_with_min_lr(base_lr: float, min_lr: float,
     return schedule
 
 
-def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
+def global_norm(tensors: Iterable[torch.Tensor], group=None) -> torch.Tensor:
     """sqrt of the sum of squares of every element (``optax.global_norm``),
-    as a 0-d fp32 tensor on the tensors' device."""
+    as a 0-d fp32 tensor on the tensors' device. With ``group`` (a process
+    group of more than one rank), the tensors are local shards and the
+    norm is that of the whole: their squares summed over the group."""
     norms = torch._foreach_norm([t.float() for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
+    norm = torch.linalg.vector_norm(torch.stack(norms))
+    if group is None:
+        return norm
+    import torch.distributed as tdist
+
+    if tdist.get_world_size(group) == 1:
+        return norm
+    from ladcast_torch.parallel.dist import collective_device
+
+    sq = norm.square().to(collective_device(group))
+    tdist.all_reduce(sq, group=group)
+    return sq.sqrt().to(norm.device)
 
 
 def _bias_correction(decay: float, count: int) -> float:
@@ -81,8 +98,10 @@ class AdamW:
                  lr_fn: Callable[[int], float], betas=(0.9, 0.999),
                  eps: float = 1e-8, weight_decay: float = 1e-2,
                  grad_clip_norm: Optional[float] = 1.0,
-                 trainable: Optional[Sequence[bool]] = None):
-        self.params = list(params)
+                 trainable: Optional[Sequence[bool]] = None, norm_group=None):
+        from ladcast_torch.parallel.sharding_rules import local
+
+        self.params = [local(p) for p in params]
         self.lr_fn = lr_fn
         self.b1, self.b2 = betas
         self.eps = eps
@@ -90,20 +109,22 @@ class AdamW:
         self.grad_clip_norm = grad_clip_norm
         self.trainable = (list(trainable) if trainable is not None
                           else [True] * len(self.params))
+        self.norm_group = norm_group
         self.count = 0
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
-        """Apply one update from ``grads`` (one per parameter). Returns their
-        global norm as given, before the mask and the clip."""
-        g_norm = global_norm(grads)
+        """Apply one update from ``grads`` (one per parameter, local shards
+        where the parameters are sharded). Returns their global norm as
+        given, before the mask and the clip."""
+        g_norm = global_norm(grads, self.norm_group)
         frozen = not all(self.trainable)
         grads = [g if t else torch.zeros_like(g)
                  for g, t in zip(grads, self.trainable)]
         if self.grad_clip_norm is not None:
-            clip_norm = global_norm(grads) if frozen else g_norm
+            clip_norm = global_norm(grads, self.norm_group) if frozen else g_norm
             keep = clip_norm < self.grad_clip_norm
             one = torch.ones_like(clip_norm)
             grads = torch._foreach_div(grads, torch.where(keep, one, clip_norm))
@@ -163,9 +184,10 @@ def make_optimizer(
     schedule: str = "cosine",
     trainable_mask: Optional[Callable[[str], bool]] = None,
 ) -> Callable[[Iterable[Tuple[str, torch.Tensor]]], AdamW]:
-    """The optimizer's init: ``make_optimizer(...)(named_parameters)``
-    gives its :class:`AdamW`. ``trainable_mask(name)`` False freezes a
-    parameter (zero updates)."""
+    """The optimizer's init: ``make_optimizer(...)(named_parameters,
+    norm_group=None)`` gives its :class:`AdamW` (``norm_group``: the shard
+    group of sharded parameters, ``sharding_rules.norm_group``).
+    ``trainable_mask(name)`` False freezes a parameter (zero updates)."""
     if schedule == "cosine":
         lr_fn = cosine_with_min_lr(lr, min_lr, num_warmup_steps,
                                    num_training_steps)
@@ -179,11 +201,12 @@ def make_optimizer(
         raise ValueError(f"schedule {schedule!r}: expected 'cosine', "
                          f"'polynomial' or 'constant'")
 
-    def init(named_params: Iterable[Tuple[str, torch.Tensor]]) -> AdamW:
+    def init(named_params: Iterable[Tuple[str, torch.Tensor]],
+             norm_group=None) -> AdamW:
         named: List[Tuple[str, torch.Tensor]] = list(named_params)
         trainable = (None if trainable_mask is None
                      else [bool(trainable_mask(n)) for n, _ in named])
         return AdamW([p for _, p in named], lr_fn, betas, eps, weight_decay,
-                     grad_clip_norm, trainable)
+                     grad_clip_norm, trainable, norm_group)
 
     return init

@@ -23,15 +23,24 @@ Random draws: the sigma indices and the noise of step s come from one
 the uninterrupted run would have drawn. ``loss_given_noise`` takes the
 indices and noise instead, which is how the tests hold the loss to the
 JAX package, whose PRNG differs.
+
+Over a mesh (``parallel.sharding_rules``): each rank's batch is its rows of
+the global batch (``dist.batch_feed_slice``), and every rank draws the
+sigma indices and noise of the whole global batch and keeps its rows, so
+the step is the one-process step on the global batch. The gradients come
+from ``loss.backward()`` (:func:`reduced_grads`), whose accumulation into
+``.grad`` fires FSDP's reduce-scatter; under DDP an explicit all-reduce
+(mean) follows. The logged loss is averaged over the ranks.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.distributed.fsdp import FSDPModule
 
 from ladcast_torch import resolve_device
 from ladcast_torch.config import (
@@ -43,6 +52,8 @@ from ladcast_torch.diffusion import edm
 from ladcast_torch.diffusion.noise_sampler import sample_sigma_indices
 from ladcast_torch.metrics.weights import cos_lat_weights
 from ladcast_torch.models.ladcast_dit import LaDCastTransformer3D, build_dit
+from ladcast_torch.parallel import dist
+from ladcast_torch.parallel import sharding_rules as rules
 from ladcast_torch.rollout.engine import stream_seed
 from ladcast_torch.train import ema as ema_lib
 from ladcast_torch.train.optim import AdamW
@@ -69,8 +80,10 @@ class TrainState:
     optimizer: AdamW
     ema: Optional[ema_lib.EMAState]
     step: int = 0
+    regime: str = "single"           # parallel.sharding_rules.dit_regime
 
     def state_dict(self) -> dict:
+        """This rank's state: its shards under FSDP."""
         return {"params": self.model.state_dict(),
                 "opt_state": self.optimizer.state_dict(),
                 "ema": None if self.ema is None else self.ema.state_dict(),
@@ -85,8 +98,108 @@ class TrainState:
             self.ema.load_state_dict(sd["ema"])
         self.step = int(sd["step"])
 
+    def full_state_dict(self) -> Optional[dict]:
+        """The whole state, laid out as one process's :meth:`state_dict`:
+        that dict itself without a process group; under one, gathered to
+        the host of rank 0 (a collective: every rank calls it), None on the
+        other ranks."""
+        if not dist.is_initialized():
+            return self.state_dict()
+        params = list(self.model.parameters())
+        sd = {"params": dist.full_state_dict(self.model),
+              "opt_state": {"count": self.optimizer.count,
+                            "mu": rules.full_tensors(self.optimizer.mu, params),
+                            "nu": rules.full_tensors(self.optimizer.nu, params)},
+              "ema": None if self.ema is None else {
+                  "params": rules.full_tensors(self.ema.params, params),
+                  "step": self.ema.step},
+              "step": self.step}
+        return sd if dist.process_index() == 0 else None
+
+    def load_full_state_dict(self, sd: Optional[dict]) -> None:
+        """Load a whole state (:meth:`full_state_dict`'s layout): without a
+        process group as :meth:`load_state_dict`; under one, ``sd`` is read
+        on rank 0 (None on the others) and each rank takes its part."""
+        if not dist.is_initialized():
+            return self.load_state_dict(sd)
+        import torch.distributed as tdist
+
+        rank0 = dist.process_index() == 0
+        meta = [None]
+        if rank0:
+            meta = [(sd["ema"] is not None, int(sd["opt_state"]["count"]),
+                     int(sd["step"]), sd["ema"] and int(sd["ema"]["step"]),
+                     len(sd["opt_state"]["mu"]))]
+        tdist.broadcast_object_list(meta, src=0)
+        has_ema, count, step, ema_step, n = meta[0]
+        if has_ema != (self.ema is not None):
+            raise ValueError("checkpoint and trainer differ in use_ema")
+        params = list(self.model.parameters())
+        if n != len(params):
+            raise ValueError(f"optimizer state has {n} mu tensors, expected "
+                             f"{len(params)}")
+        self.load_full_params(sd["params"] if rank0 else None)
+        for key in ("mu", "nu"):
+            rules.load_full_(getattr(self.optimizer, key), params,
+                             sd["opt_state"][key] if rank0 else None)
+        self.optimizer.count = count
+        if self.ema is not None:
+            rules.load_full_(self.ema.params, params,
+                             sd["ema"]["params"] if rank0 else None)
+            self.ema.step = ema_step
+        self.step = step
+
+    def load_full_params(self, params: Optional[Dict[str, torch.Tensor]]) -> None:
+        """The model's weights from a whole state dict: loaded as given
+        without a process group; under one, read on rank 0 (None on the
+        other ranks) and copied into every rank's parameters in place, each
+        shard scattered from rank 0 (``sharding_rules.load_full_``), so the
+        optimizer's and the EMA's views of the shards stay the parameters'.
+        (``set_model_state_dict(..., broadcast_from_rank0=True)`` assigns
+        new parameter tensors instead.)"""
+        if not dist.is_initialized():
+            self.model.load_state_dict(params, strict=True)
+            return
+        import torch.distributed as tdist
+
+        named = list(self.model.named_parameters()) + list(self.model.named_buffers())
+        names = [n for n, _ in named]
+        verdict = [None]
+        if dist.process_index() == 0 and sorted(params) != sorted(names):
+            verdict = [f"state dict keys differ from the model's: missing "
+                       f"{sorted(set(names) - set(params))}, unexpected "
+                       f"{sorted(set(params) - set(names))}"]
+        tdist.broadcast_object_list(verdict, src=0)
+        if verdict[0]:
+            raise ValueError(verdict[0])
+        tensors = [t for _, t in named]
+        rules.load_full_([rules.local(t) for t in tensors], tensors,
+                         [params[n] for n in names] if dist.process_index() == 0
+                         else None)
+
 
 Batch = Sequence[torch.Tensor]  # (initial_profile, clean, year_progress)
+
+
+def reduced_grads(state: TrainState, loss: torch.Tensor,
+                  metrics: Sequence[torch.Tensor] = ()) -> List[torch.Tensor]:
+    """The gradients of ``loss`` as this rank's optimizer takes them, in
+    ``state.model.parameters()`` order: ``loss.backward()``, then each
+    parameter's gradient, read and cleared after the backward (until it
+    ends FSDP holds its gathered parameters). Under FSDP and HSDP they are
+    the local shards, which the backward's reduce-scatter averaged; under
+    DDP the whole gradients, averaged here by an all-reduce. ``metrics``
+    (detached tensors) are averaged over the ranks in place."""
+    loss.backward()
+    params = list(state.model.parameters())
+    grads = [rules.local(p.grad) for p in params]
+    for p in params:
+        p.grad = None
+    if state.regime == "ddp":
+        dist.all_reduce_mean_(grads)
+    if state.regime != "single":
+        dist.all_reduce_mean_(list(metrics))
+    return grads
 
 
 def make_ar_train_step(
@@ -96,15 +209,19 @@ def make_ar_train_step(
     tcfg: ARTrainConfig,
     optimizer: Callable[..., AdamW],
     device="cuda",
+    mesh=None,
+    zero: bool = False,
 ):
     """Returns (init_fn, train_step).
 
     init_fn(seed) -> TrainState: a seeded fp32 model on ``device`` (CUDA
-      unless the caller asks for the CPU), its optimizer
-      (``optimizer(named_parameters)``, see ``train.optim.make_optimizer``)
-      and EMA.
+      unless the caller asks for the CPU), spread over ``mesh`` with
+      ``zero`` (``sharding_rules.shard_dit``; None: one device), its
+      optimizer (``optimizer(named_parameters, norm_group)``, see
+      ``train.optim.make_optimizer``) and EMA.
     train_step(state, batch, seed) -> metrics: one update of ``state`` in
-      place. batch holds, on ``device``,
+      place. batch holds this rank's rows (``dist.batch_feed_slice``; all
+      of them on one device), on ``device``,
         initial_profile (B, T_in, h, w, C) normalized conditioning latents,
         clean           (B, T_out, h, w, C) normalized target latents,
         year_progress   (B, num_push_forward_steps) float32;
@@ -130,6 +247,10 @@ def make_ar_train_step(
                                device=device).reshape(1, 1, -1, 1, 1)
 
     def apply_model(model, x_in, c_noise, cond, yp):
+        if isinstance(model, FSDPModule):
+            # FSDP's all-gather makes the compute-dtype copy
+            # (sharding_rules: MixedPrecisionPolicy)
+            return model(x_in.to(c_dtype), c_noise, cond.to(c_dtype), yp).float()
         params = {n: p.to(c_dtype) if p.dtype == torch.float32 else p
                   for n, p in model.named_parameters()}
         out = torch.func.functional_call(
@@ -183,18 +304,22 @@ def make_ar_train_step(
 
     def train_step(state: TrainState, batch: Batch, seed: int) -> Dict[str, torch.Tensor]:
         clean = batch[1]
+        # the draws of the whole global batch; this rank keeps its rows
+        n_data = 1 if mesh is None else mesh["data"].size()
+        total = clean.shape[0] * n_data
+        rows = dist.batch_feed_slice(mesh, total)
         g = torch.Generator(device=device).manual_seed(stream_seed(seed, state.step))
-        indices = sample_sigma_indices(g, clean.shape[0], state.step, ns_cfg,
-                                       sched_cfg)
-        noise = torch.randn(clean.shape, generator=g, device=device)
+        indices = sample_sigma_indices(g, total, state.step, ns_cfg,
+                                       sched_cfg)[rows]
+        noise = torch.randn((total, *clean.shape[1:]), generator=g,
+                            device=device)[rows]
         loss, aux = loss_given_noise(state.model, batch, indices, noise)
-        params = list(state.model.parameters())
-        grads = torch.autograd.grad(loss, params)
+        grads = reduced_grads(state, loss, [aux["loss"], aux["mean_sigma_index"]])
         aux["grad_norm"] = state.optimizer.step(grads)
         del grads
         if state.ema is not None:
             ema_lib.ema_update(
-                state.ema, params, inv_gamma=tcfg.ema_inv_gamma,
+                state.ema, state.optimizer.params, inv_gamma=tcfg.ema_inv_gamma,
                 power=tcfg.ema_power, max_decay=tcfg.ema_max_decay,
                 update_after_step=tcfg.ema_update_after_step)
         state.step += 1
@@ -202,9 +327,11 @@ def make_ar_train_step(
 
     def init_fn(seed: int) -> TrainState:
         model = build_dit(dit_cfg, device, torch.float32, seed)
-        opt = optimizer(model.named_parameters())
-        ema = ema_lib.ema_init(model.parameters()) if tcfg.use_ema else None
-        return TrainState(model, opt, ema, 0)
+        regime = rules.shard_dit(model, mesh, zero, tcfg.compute_dtype)
+        opt = optimizer(model.named_parameters(),
+                        norm_group=rules.norm_group(mesh, regime))
+        ema = ema_lib.ema_init(opt.params) if tcfg.use_ema else None
+        return TrainState(model, opt, ema, 0, regime)
 
     train_step.loss_given_noise = loss_given_noise
     return init_fn, train_step

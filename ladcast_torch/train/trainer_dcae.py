@@ -17,6 +17,13 @@ One step:
 Random draws: the roll of step s comes from a CPU ``torch.Generator``
 seeded from (seed, s) alone. ``train_step.loss_given_roll`` takes the roll
 instead, which is how the tests hold the loss to the JAX package.
+
+Data-parallel over a mesh's ranks, as the JAX CLI is
+(``sharding_rules.shard_dcae``): each rank trains on its rows of the global
+batch (``dist.host_local_slice``) with the rolls of those rows, drawn for
+the whole global batch; the gradients are averaged by an explicit
+all-reduce after the backward (``trainer_ar.reduced_grads``), and the
+logged metrics over the ranks.
 """
 
 from __future__ import annotations
@@ -31,9 +38,11 @@ from ladcast_torch.config import DCAEConfig
 from ladcast_torch.metrics.losses import lp_loss, lp_loss_per_var
 from ladcast_torch.metrics.weights import grid_lat_weights
 from ladcast_torch.models.dcae import build_dcae
+from ladcast_torch.parallel import dist
+from ladcast_torch.parallel import sharding_rules as rules
 from ladcast_torch.rollout.engine import stream_seed
 from ladcast_torch.train import ema as ema_lib
-from ladcast_torch.train.trainer_ar import TrainState
+from ladcast_torch.train.trainer_ar import TrainState, reduced_grads
 
 
 @dataclass(frozen=True)
@@ -61,14 +70,16 @@ def roll_samples(t: torch.Tensor, roll) -> torch.Tensor:
 
 
 def make_dcae_train_step(cfg: DCAEConfig, tcfg: DCAETrainConfig, optimizer,
-                         device="cuda", grid_lat: int = 120):
+                         device="cuda", grid_lat: int = 120, mesh=None):
     """Returns (init_fn, train_step, eval_step).
 
     init_fn(seed) -> TrainState (``train.trainer_ar.TrainState``): a seeded
       fp32 DCAE on ``device`` (CUDA unless the caller asks for the CPU),
-      its optimizer (``optimizer(named_parameters)``) and EMA.
+      data-parallel over ``mesh`` (None: one device), its optimizer
+      (``optimizer(named_parameters)``) and EMA.
     train_step(state, batch, seed) -> metrics: one update of ``state`` in
-      place. batch holds, on ``device``,
+      place. batch holds this rank's rows (all of them on one device), on
+      ``device``,
         fields   (B, H, W, 84) normalized, SST NaNs already -2,
         nan_mask (B, H, W) bool, True where the SST was NaN,
         statics  (H, W, 5) normalized static conditioning;
@@ -127,19 +138,21 @@ def make_dcae_train_step(cfg: DCAEConfig, tcfg: DCAETrainConfig, optimizer,
     def train_step(state: TrainState, batch: Batch, seed: int) -> Dict[str, torch.Tensor]:
         fields, nan_mask, statics = batch
         B, H, W, _ = fields.shape
-        # the first step of each batch trains unrolled, the reuses rolled
-        roll = (draw_roll(seed, state.step, B, H, W)
+        # the first step of each batch trains unrolled, the reuses rolled;
+        # the rolls of the whole global batch are drawn, this rank's rows kept
+        roll = (draw_roll(seed, state.step, B * dist.process_count(), H, W)[
+                    dist.host_local_slice(B * dist.process_count())]
                 if state.step % tcfg.subbatch_steps else None)
         loss, aux = loss_fn(state.model, fields, nan_mask, statics, roll)
         for k in ("_pred", "_target", "_lw"):
             aux.pop(k)
-        params = list(state.model.parameters())
-        grads = torch.autograd.grad(loss, params)
+        grads = reduced_grads(state, loss, [aux["loss"], aux["loss_per_var"]])
         aux["grad_norm"] = state.optimizer.step(grads)
         del grads
         if state.ema is not None:
             ema_lib.ema_update(
-                state.ema, params, inv_gamma=tcfg.ema_inv_gamma,
+                state.ema, list(state.model.parameters()),
+                inv_gamma=tcfg.ema_inv_gamma,
                 power=tcfg.ema_power, max_decay=tcfg.ema_max_decay,
                 update_after_step=tcfg.ema_update_after_step)
         state.step += 1
@@ -157,9 +170,10 @@ def make_dcae_train_step(cfg: DCAEConfig, tcfg: DCAETrainConfig, optimizer,
 
     def init_fn(seed: int) -> TrainState:
         model = build_dcae(cfg, device, torch.float32, seed)
+        regime = rules.shard_dcae(model, mesh)
         opt = optimizer(model.named_parameters())
         ema = ema_lib.ema_init(model.parameters()) if tcfg.use_ema else None
-        return TrainState(model, opt, ema, 0)
+        return TrainState(model, opt, ema, 0, regime)
 
     train_step.loss_given_roll = loss_fn
     return init_fn, train_step, eval_step

@@ -1,6 +1,7 @@
 """JSON-lines metric logging: one record per logged step in
 ``<output_dir>/metrics.jsonl``, and the run's config, dot-flattened, in
-``<output_dir>/config.json``."""
+``<output_dir>/config.json``. A logger without an output directory (the
+ranks other than 0 of a process group) writes nothing."""
 
 from __future__ import annotations
 
@@ -25,7 +26,10 @@ def flatten_config(d: Dict, prefix: str = "") -> Dict:
 
 
 class MetricLogger:
-    def __init__(self, output_dir: str, config: Optional[Dict] = None):
+    def __init__(self, output_dir: Optional[str], config: Optional[Dict] = None):
+        self._f = None
+        if output_dir is None:
+            return
         os.makedirs(output_dir, exist_ok=True)
         self._f = open(os.path.join(output_dir, "metrics.jsonl"), "a")
         self._t0 = time.time()
@@ -34,6 +38,8 @@ class MetricLogger:
                 json.dump(flatten_config(config), f, indent=2)
 
     def log(self, metrics: Dict, step: int):
+        if self._f is None:
+            return
         rec = {"step": step, "wall": round(time.time() - self._t0, 2)}
         rec.update({k: (float(v) if hasattr(v, "__float__") else v)
                     for k, v in metrics.items()})
@@ -41,4 +47,5 @@ class MetricLogger:
         self._f.flush()
 
     def close(self):
-        self._f.close()
+        if self._f is not None:
+            self._f.close()

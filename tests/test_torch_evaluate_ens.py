@@ -216,10 +216,18 @@ def test_cli_refusals(world, tmp_path):
     base = ["--latent_dir", world["lat_dir"], "--truth", world["era5"],
             "--dcae_params", world["dcae_dir"], "--output_dir", str(tmp_path),
             "--allow_truth_mean_climatology", "--device", "cpu"]
-    for extra, item in ((["--shard_ensemble"], "M12"),
-                        (["--plot_diagnostics", "p.png", "--diagnostics"], "M13")):
+    for extra, item in ((["--plot_diagnostics", "p.png", "--diagnostics"], "M13"),):
         with pytest.raises(NotImplementedError, match=item):
             t_ens.main(base + extra)
+    # --shard_ensemble runs: in one process it scores as a run without it
+    daily = ["--step_size_hour", "24"]
+    plain = t_ens.main(base + daily)
+    sharded = t_ens.main([a if a != str(tmp_path) else str(tmp_path / "sharded")
+                          for a in base] + daily + ["--shard_ensemble"])
+    assert sharded["summary"] == plain["summary"]
+    for k in t_ens.METRIC_KEYS:
+        np.testing.assert_array_equal(np.load(tmp_path / "sharded" / f"{k}.npy"),
+                                      np.load(tmp_path / f"{k}.npy"))
     zarr = [a if a != world["era5"] else str(tmp_path / "era5.zarr") for a in base]
     with pytest.raises(NotImplementedError, match="M13"):
         t_ens.main(zarr)

@@ -411,9 +411,17 @@ def test_cli_pred_rollout_on_the_cpu(world, tmp_path):
 
 
 def test_cli_flags_that_wait_raise(world, tmp_path):
+    """Only zarr data waits now; --shard_ensemble runs, and in one process
+    (one rank holds every member) writes the files of a run without it."""
     out = str(tmp_path / "x")
-    with pytest.raises(NotImplementedError, match="M12"):
-        t_cli.run(_cli_args(world, out, "--shard_ensemble"))
+    plain, sharded = str(tmp_path / "plain"), str(tmp_path / "sharded")
+    t_cli.run(_cli_args(world, plain), compute_dtype="float32")
+    t_cli.run(_cli_args(world, sharded, "--shard_ensemble"), compute_dtype="float32")
+    names = sorted(os.listdir(plain))
+    assert names == sorted(os.listdir(sharded)) and len(names) == 2
+    for name in names:
+        np.testing.assert_array_equal(np.load(os.path.join(sharded, name)),
+                                      np.load(os.path.join(plain, name)))
     args = _cli_args(world, out)
     args.data = str(tmp_path / "era5.zarr")
     with pytest.raises(NotImplementedError, match="M13"):

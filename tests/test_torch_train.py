@@ -377,12 +377,18 @@ def test_cli_trains_checkpoints_and_resumes(tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
+    """zarr latents wait; a mesh the run's ranks cannot form raises the JAX
+    mesh errors, and a mesh without a data axis exits."""
     cfg, lat = _cli_fixtures(tmp_path)
     base = ["--config", cfg, "--latents", lat, "--device", "cpu",
             "--output_dir", str(tmp_path / "x")]
-    for extra in (["--mesh", "data=-1"], ["--zero"]):
-        with pytest.raises(NotImplementedError, match="M12"):
+    for extra, err, msg in ((["--mesh", "data=2"], ValueError, "!= 1 devices"),
+                            (["--mesh", "data=-1,model=2", "--zero"], ValueError,
+                             "does not divide 1 devices")):
+        with pytest.raises(err, match=msg):
             t_cli.main(base + extra)
+    with pytest.raises(SystemExit, match="'data' axis"):
+        t_cli.main(base + ["--mesh", "model=1"])
     with pytest.raises(NotImplementedError, match="M13"):
         t_cli.main(["--config", cfg, "--latents", str(tmp_path), "--device",
                     "cpu", "--output_dir", str(tmp_path / "x")])
@@ -395,21 +401,21 @@ def _1p6b_yaml():
 
 @pytest.mark.parametrize("section", [
     "shipped", {"mesh": {"data": 1, "model": 2}}, {"mesh": "data=-1,model=8"},
-    {"mesh": {"data": -1}, "zero": True}, {"mesh": {"data": 2}},
+    {"mesh": {"data": 2}, "zero": True}, {"mesh": {"data": 2}},
     {"mesh": {"data": -1, "seq": 2}}],
     ids=["ladcast_1p6b_yaml", "model_axis", "model_axis_string", "zero",
          "data_of_two", "other_axis"])
 def test_cli_refuses_a_parallel_section_it_cannot_honour(tmp_path, section):
-    """configs/ladcast_1p6b.yaml as shipped asks for a TP + ZeRO mesh: run
-    raises with the --mesh / --zero flags' item instead of training it as
-    plain data parallelism, and so does any section that needs more than
-    one device."""
+    """configs/ladcast_1p6b.yaml as shipped asks for a mesh of 8-rank model
+    groups: one process raises the JAX CLI's mesh-size error before it
+    writes anything, as that CLI does on fewer than 8 devices, and so does
+    any section that needs more ranks than the run has."""
     cfg = (_1p6b_yaml() if section == "shipped"
            else {**TINY_AR_CFG, "parallel": section})
     args = t_cli.build_parser().parse_args(
         ["--latents", str(tmp_path / "none.npz"), "--device", "cpu",
          "--output_dir", str(tmp_path / "x")])
-    with pytest.raises(NotImplementedError, match="M12"):
+    with pytest.raises(ValueError, match=r"(!=|does not divide) 1 devices"):
         t_cli.run(cfg, args)
     assert not (tmp_path / "x").exists()
 

@@ -252,8 +252,13 @@ def test_cli_validation_rotation_resume_and_finetune(tmp_path):
 
 def test_cli_refusals(tmp_path):
     _write_npz(tmp_path / "train.npz", 2, 0)
-    with pytest.raises(NotImplementedError, match="M12"):
+    # a parallel: section for more ranks than the run has: the mesh-size
+    # error of the JAX mesh; the DCAE is data-parallel only
+    with pytest.raises(ValueError, match="!= 1 devices"):
         t_cli.run({**TINY_CFG, "parallel": {"mesh": {"data": 8}}},
+                  _args(tmp_path, "--num_steps", "1"))
+    with pytest.raises(ValueError, match="data-parallel only"):
+        t_cli.run({**TINY_CFG, "parallel": {"mesh": {"data": -1}, "zero": True}},
                   _args(tmp_path, "--num_steps", "1"))
     with pytest.raises(NotImplementedError, match="M13"):
         t_cli.run(TINY_CFG, t_cli.build_parser().parse_args(
