@@ -20,22 +20,24 @@ latent shards, and the DCAE with timestep conditioning.
      source, in parallel); for the attention's, the flash backward's, the
      two convs' and the plain attention's libraries, each kernel's (each
      template instance's) registers, shared memory and spills (``-Xptxas
-     -v``) and its count of wgmma (HGMMA), TMA-load (UTMALDG) and mma.sync
-     (HMMA) instructions (``cuobjdump -sass``): the bf16 K1, the bf16 K3
-     pair (``bwd_dq_bf16_wgmma_kernel``, ``bwd_dkv_bf16_wgmma_kernel``) and
-     all six instances of K6 (``fa_plain_wgmma_kernel``, three head sizes,
-     one or three bf16 planes) must have the first two, not the third, and
-     every instance of the bf16 K4 wgmma and no mma.sync; all of them spill
-     nothing and draw no note from ptxas (a serialised wgmma); K6's split
-     pass is reported only;
+     -v``) and its count of wgmma (HGMMA), TMA-load (UTMALDG), mma.sync
+     (HMMA) and fp32 FMA (FFMA) instructions (``cuobjdump -sass``): the
+     bf16 K1, the bf16 K3 pair (``bwd_dq_bf16_wgmma_kernel``,
+     ``bwd_dkv_bf16_wgmma_kernel``) and all six instances of K6
+     (``fa_plain_wgmma_kernel``, three head sizes, one or three bf16 planes)
+     must have the first two, not the third, and every instance of the bf16
+     and the fp32 K4 (``conv_bf16_wgmma_kernel``, ``conv_f32_wgmma_kernel``)
+     wgmma and no mma.sync; all of them spill nothing and draw no note from
+     ptxas (a serialised wgmma); K6's split pass is reported only;
   2. kernels: each kernel against its plain PyTorch version on the card, in
      bf16 and fp32, at the main path's shapes (B=20, S=2250 dual- and
      single-stream tables, S=450 refiner tables) and a ragged small case,
      with median times over 20 timed runs, the plain version's time, the
      roofline bound and, for the attention, the time of PyTorch's
      ``scaled_dot_product_attention`` on the pre-normed inputs (a
-     yardstick only; the port never calls it), its rate and the bound's
-     share of its time;
+     yardstick only; the port never calls it; in fp32 with TF32 off), its
+     rate and the bound's share of its time; the fp32 K1 also with the
+     bound of its products as six bf16 plane products (``split_bound_ms``);
      the plain flash attention (K6) follows at ``K6_CASES``, bf16 and fp32
      inputs: timed at (2, 2250 / 450, 12, 128), with its bound in
      tensor-core passes (``flash_plain_bound``), SDPA on fp32 copies (the
@@ -50,8 +52,9 @@ latent shards, and the DCAE with timestep conditioning.
      shape of the shipped DCAE and at small ragged shapes: in bf16 at the
      batches the paths give them (the decoder's shapes at B=80, the bench
      path's decode, and B=40, the forecast path's chunk; the encoder's at
-     B=1), in fp32 at B=2; each timed, the bf16 K4 on its packed weight
-     as the path runs it (the packing timed on its own, ``pack_ms``), with
+     B=1), in fp32 at B=2; each timed, K4 on its packed weight as the path
+     runs it (one bf16 plane, or three of an fp32 weight; the packing timed
+     on its own, ``pack_ms``), the fp32 K4's bound in bf16 passes, with
      cuDNN's ``F.conv2d`` on channels-last tensors as the yardstick (the
      port calls it only under ``CONV_MODE = "library"``), the rate and the
      bound's share of the time;
@@ -59,6 +62,8 @@ latent shards, and the DCAE with timestep conditioning.
      lead's members; ``cli.evaluate_ens`` decodes in the fp32 of the
      parameters it loads) at every decoder shape, circular, against their
      plain versions, timed beside cuDNN's fp32 ``F.conv2d`` with TF32 off;
+     K4 on the fp32 kernel (one launch each), its bound in six bf16 passes
+     beside the CUDA cores' fp32 bound;
   2b. backward kernels: the lse variant of the attention kernel and the
      flash backward (dq, dk/dv) against their plain versions, bf16 and
      fp32, at the training shapes (B=4, S=2250 dual- and single-stream
@@ -69,7 +74,8 @@ latent shards, and the DCAE with timestep conditioning.
      backend asked for its logsumexp beside the lse variant, and of
      PyTorch's SDPA backward on the same pre-normed inputs beside the
      backward, per kernel and for the dq + dk/dv pair against the whole
-     plain and SDPA backward;
+     plain and SDPA backward; the fp32 kernels also with their bound as
+     six bf16 plane products (``split_bound_ms``);
   3. model parity: one 375M DiT forward at B=2 through the kernels and
      through the plain composite, same seeded weights and inputs;
   3b. gradient parity: the 375M training loss at B=2 (injected sigma
@@ -80,7 +86,8 @@ latent shards, and the DCAE with timestep conditioning.
      that requires grad must refuse it;
   3c. DCAE parity: one encode and one decode of the shipped DCAE at B=2
      under ``CONV_MODE = "kernel"`` (the default) against ``"library"``,
-     fp32 and bf16, with the launches of K4 and K5 per call;
+     fp32 and bf16, with the launches of K4 and K5 per call (in fp32 every
+     dense conv on the fp32 kernel);
   3d. DCAE with timestep conditioning: the shipped widths with
      ``temb_channels`` = DCAE_TEMB_CHANNELS at B=4, encode and decode with
      ``time_elapsed`` under both conv modes, fp32 and bf16, to DCAE_TOL,
@@ -134,8 +141,9 @@ latent shards, and the DCAE with timestep conditioning.
      parameter may move), ``encode_latents``, ``compute_stats``,
      ``compute_climatology``, ``evaluate_ens --diagnostics`` on two of the
      forecast phase's latent files (20 members, 4 leads, fp32 decode;
-     seconds per init time split into decode and scores, launches, finite
-     metrics), ``compare_baseline``'s ``compare``, ``track`` on the Heun
+     seconds per init time split into decode and scores beside the card's
+     name and power limit, launches, every dense conv on the fp32 K4,
+     finite metrics), ``compare_baseline``'s ``compare``, ``track`` on the Heun
      forecast's decoded bundle, and ``train_ar`` for CHAIN_AR_STEPS steps
      with a validation rollout every CHAIN_AR_VAL_EVERY (K1 and K2 in the
      rollouts, K1-lse and K3 in the steps);
@@ -171,7 +179,10 @@ latent shards, and the DCAE with timestep conditioning.
      limit) and its fields to that run's, and ``evaluate_ens`` over the DPM
      run's two files (one a rank) against a one-process run's merged
      tables (PARALLEL_SCORE_RTOL); wall time and each rank's peak memory;
-  7. the kernel summary line, the card line and, last, the ok line.
+  7. the kernel summary line (the fp32 K4 an entry of its own, its
+     launches the scorer's; the fp32 K1 and K3, which no default path runs,
+     under their bf16 entries with their launches in one fp32 training
+     step), the card line and, last, the ok line.
 
 With ``--profile``, one more repetition of the main path runs under
 ``torch.profiler`` after phase 4, and 4 more training steps (kernel
@@ -389,8 +400,8 @@ def csrc_kernels():
 
 
 # SASS opcodes that show which path a kernel took: HGMMA is wgmma, UTMALDG a
-# TMA tile load, HMMA mma.sync
-SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
+# TMA tile load, HMMA mma.sync, FFMA an fp32 multiply-add on the CUDA cores
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "FFMA")
 
 
 _BUILTIN_TYPES = {"f": "float", "d": "double", "i": "int", "b": "bool"}
@@ -599,6 +610,9 @@ def kernel_phase(peaks):
             t_bytes, t_ops = nbytes / bw * 1e3, flops / peak * 1e3
             rec.update(bound_ms=max(t_bytes, t_ops),
                        bound_by="bytes" if t_bytes >= t_ops else "operations")
+            if dtype == torch.float32:  # the FMA kernel's products as bf16 planes
+                rec.update(split_bound(flops, nbytes, peaks),
+                           library_tf32=torch.backends.cuda.matmul.allow_tf32)
             if timed:
                 rec["ms"] = time_ms(lambda: fa.fused_attention(q, kn, v, cos, sin, w))
                 rec["plain_ms"] = time_ms(
@@ -711,8 +725,9 @@ def conv_kernel_phase(peaks):
             # lecun-normal scale, as the model's weights: outputs of O(1)
             w = rand((k, k, Cin, Cout), (k * k * Cin) ** -0.5, dtype)
             w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-            # what the path passes: bf16 the packed tiles, fp32 HWIO
-            wk = dc.pack_dense_weight(w) if dtype == torch.bfloat16 else w
+            # what the path passes: the packed tiles (one bf16 plane, or three
+            # of an fp32 weight)
+            wk = dc.pack_dense_weight(w)
             flops = 2 * k * k * Cin * Cout * B * H * W
             nbytes = (x.numel() + w.numel() + B * H * W * Cout) * x.element_size()
             for circular in (True, False):
@@ -724,8 +739,8 @@ def conv_kernel_phase(peaks):
                        "dtype": dname, "B": B, "k": k, "circular": circular,
                        **compare(out, ref, kernel_tolerance("dense_conv", dname, ref)),
                        "finite": bool(torch.isfinite(out).all()),
-                       **bound(flops, nbytes,
-                               peak_bf16 if dtype == torch.bfloat16 else peak_f32, bw)}
+                       **(bound(flops, nbytes, peak_bf16, bw) if dtype == torch.bfloat16
+                          else conv_f32_bound(flops, nbytes, peaks))}
                 if kind == "production":
                     rec["ms"] = time_ms(
                         lambda: dc.dense_conv_forward(x, wk, pads, circular), **tkw)
@@ -733,7 +748,7 @@ def conv_kernel_phase(peaks):
                         lambda: dc.dense_conv_plain(x, w, pads, circular), **tkw)
                     rec["library_ms"] = time_ms(library(x, w_oihw, p, circular, 1),
                                                 **tkw)
-                    if dtype == torch.bfloat16 and circular:
+                    if circular:
                         rec["pack_ms"] = time_ms(lambda: dc.pack_dense_weight(w), **tkw)
                     rec.update(rates(flops, rec))
                 emit(rec)
@@ -786,9 +801,12 @@ def conv_scoring_phase(peaks):
     """K4 and K5 in fp32 at the scorer's shapes: ``cli.evaluate_ens``
     decodes the 20 members of one lead at a time with the fp32 parameters
     it loads, so every decoder conv runs at B = SCORE_BATCH in fp32
-    (circular, as the path runs them; the dense ones on the fp32 FMA kernel,
-    ``conv_f32_kernel``). Each against its plain version, timed beside
-    cuDNN's fp32 ``F.conv2d`` with TF32 off, the same function."""
+    (circular, as the path runs them; the dense ones on the fp32 K4,
+    ``conv_f32_wgmma_kernel``, reading the three-plane packed weight the
+    model keeps, whose packing is timed apart as ``pack_ms``). Each against
+    its plain version, timed beside cuDNN's fp32 ``F.conv2d`` with TF32
+    off, the same function; the dense ones' bound in bf16 passes
+    (``conv_f32_bound``) beside the CUDA cores' fp32 bound."""
     import torch
     import torch.nn.functional as F
 
@@ -814,6 +832,7 @@ def conv_scoring_phase(peaks):
                     w_oihw = w.permute(3, 2, 0, 1).contiguous(
                         memory_format=torch.channels_last)
                     fwd, plain_fn = dc.dense_conv_forward, dc.dense_conv_plain
+                    wk = dc.pack_dense_weight(w)  # as the model keeps it
                 else:
                     H, W, Cin, k = shape
                     Cout, groups, case = Cin, Cin, f"{H}x{W}x{Cin} k{k}"
@@ -821,38 +840,46 @@ def conv_scoring_phase(peaks):
                     w_oihw = w.permute(2, 0, 1)[:, None].contiguous()
                     fwd = dw.depthwise_same_conv_forward
                     plain_fn = dw.depthwise_same_conv_plain
+                    wk = w
                 flops = 2 * k * k * (Cout if dense else 1) * Cin * B * H * W
                 p = k // 2
                 pads = ((p, p), (p, p))
                 x = torch.randn((B, H, W, Cin), generator=g, device=dev)
                 xw = torch.cat([x[:, :, W - p:], x, x[:, :, :p]], dim=2).permute(0, 3, 1, 2)
 
-                def run(fn=fwd):
-                    return fn(x, w, pads, True)
+                def run(fn=fwd, wk=wk):
+                    return fn(x, wk, pads, True)
 
                 def plain(fn=plain_fn):
                     return fn(x, w, pads, True)
 
+                f32_before = dc.dense_conv_forward.f32_launches
                 out, ref = run(), plain()
                 torch.cuda.synchronize()
+                f32_launched = dc.dense_conv_forward.f32_launches - f32_before
                 nbytes = (x.numel() + w.numel() + B * H * W * Cout) * 4
                 rec = {"phase": "conv_scoring", "kernel": kname, "case": case,
                        "kind": "scoring", "dtype": "float32", "B": B, "k": k,
                        "circular": True,
                        **compare(out, ref, kernel_tolerance(kname, "float32", ref)),
                        "finite": bool(torch.isfinite(out).all()),
-                       **bound(flops, nbytes, peak_f32, bw),
+                       **(conv_f32_bound(flops, nbytes, peaks) if dense
+                          else bound(flops, nbytes, peak_f32, bw)),
+                       "f32_kernel_launches": f32_launched,
                        "ms": time_ms(run, **tkw), "plain_ms": time_ms(plain, **tkw),
                        # the wrap columns concatenated outside the timed call
                        "library_ms": time_ms(lambda: F.conv2d(
                            xw, w_oihw, padding=(p, 0), groups=groups), **tkw),
                        "library_tf32": torch.backends.cudnn.allow_tf32}
+                if dense:
+                    rec["pack_ms"] = time_ms(lambda: dc.pack_dense_weight(w), **tkw)
                 rec.update(rates(flops, rec))
                 emit(rec)
                 results[kname].append(rec)
-                if not (rec["ok"] and rec["finite"]):
+                if not (rec["ok"] and rec["finite"]
+                        and rec["f32_kernel_launches"] == int(dense)):
                     raise AssertionError(f"{kname} at the scorer's shape: {rec}")
-                del x, xw, w, w_oihw, out, ref
+                del x, xw, w, wk, w_oihw, out, ref
     torch.cuda.empty_cache()
     return results
 
@@ -975,6 +1002,7 @@ def _reset_conv_launches():
     from ladcast_torch.ops import depthwise_conv as dw
 
     dc.dense_conv_forward.launches = 0
+    dc.dense_conv_forward.f32_launches = 0
     dw.depthwise_same_conv_forward.launches = 0
 
 
@@ -994,6 +1022,7 @@ def dcae_parity_phase():
 
     from ladcast_torch.config import DCAEConfig
     from ladcast_torch.models.dcae import build_dcae
+    from ladcast_torch.ops import dense_conv as dc
     from ladcast_torch.ops import sphere
 
     if sphere.CONV_MODE != "kernel":
@@ -1009,7 +1038,7 @@ def dcae_parity_phase():
         dcae = build_dcae(DCAEConfig(), dev, dtype, seed=9)
         expected = {"encode": sphere_conv_counts(dcae.encoder),
                     "decode": sphere_conv_counts(dcae.decoder)}
-        outs, launches = {}, {}
+        outs, launches, f32 = {}, {}, {}
         with torch.inference_mode():
             for mode in ("kernel", "library"):
                 with conv_mode(mode):
@@ -1020,6 +1049,7 @@ def dcae_parity_phase():
                         _reset_conv_launches()
                         outs[mode, stage] = fn().float()
                         launches[mode, stage] = _conv_launches()
+                        f32[mode, stage] = dc.dense_conv_forward.f32_launches
         torch.cuda.synchronize()
         rec = {"phase": "dcae_parity", "dtype": dname, "B": 2, "tol": DCAE_TOL[dname],
                "expected_launches": expected}
@@ -1042,9 +1072,13 @@ def dcae_parity_phase():
             rec[stage] = {"rel_l2": ((a - b).norm() / b.norm()).item(),
                           "max_abs_err": (a - b).abs().max().item(),
                           "finite": bool(torch.isfinite(a).all()),
-                          "launches": launches["kernel", stage]}
+                          "launches": launches["kernel", stage],
+                          # the dense convs' launches of the fp32 kernel
+                          "f32_kernel_launches": f32["kernel", stage]}
             ok &= (rec[stage]["finite"] and rec[stage]["rel_l2"] <= DCAE_TOL[dname]
                    and launches["kernel", stage] == expected[stage]
+                   and f32["kernel", stage] == (expected[stage]["dense_conv"]
+                                                if dtype == torch.float32 else 0)
                    and not any(launches["library", stage].values()))
         emit(rec)
         if not ok:
@@ -1095,6 +1129,25 @@ def bound(flops, nbytes, peak, bw):
     t_ops, t_bytes = flops / peak * 1e3, nbytes / bw * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def split_bound(flops, nbytes, peaks):
+    """The least time of fp32 products carried by three bf16 planes each:
+    six bf16 plane products per product at the bf16 tensor-core peak,
+    against the bytes. {"split_bound_ms", "split_bound_by"}."""
+    b = bound(6 * flops, nbytes, peaks[0], peaks[2])
+    return {"split_bound_ms": b["bound_ms"], "split_bound_by": b["bound_by"]}
+
+
+def conv_f32_bound(flops, nbytes, peaks):
+    """The fp32 K4's bound: its six bf16 plane products per product at the
+    bf16 tensor-core peak (``bound_passes`` 6) against the bytes; beside
+    it, the bound on the CUDA cores' fp32 peak that the FMA kernel it
+    replaced was held to (``cuda_core_bound_ms``)."""
+    b = split_bound(flops, nbytes, peaks)
+    return {"bound_passes": 6, "bound_ms": b["split_bound_ms"],
+            "bound_by": b["split_bound_by"],
+            "cuda_core_bound_ms": bound(flops, nbytes, peaks[1], peaks[2])["bound_ms"]}
 
 
 def rates(flops, rec):
@@ -1186,6 +1239,10 @@ def backward_kernel_phase(peaks):
                        "fused_attention", dname, ref)),
                    **bound(4 * B * H * S * S * D, 4 * n * es + 3 * S * D * 4
                            + stats_bytes, peak, bw)}
+            if dtype == torch.float32:
+                rec.update(split_bound(4 * B * H * S * S * D, 4 * n * es + 3 * S * D * 4
+                                       + stats_bytes, peaks),
+                           library_tf32=torch.backends.cuda.matmul.allow_tf32)
             if timed:
                 rec["ms"] = time_ms(lambda: fa.fused_attention(
                     q, kn, v, cos, sin, w, return_lse=True))
@@ -1256,6 +1313,9 @@ def backward_kernel_phase(peaks):
                            "same_bits_twice": repeats[oname],
                            **bound(n_ops * B * H * S * S * D,
                                    n_io * n * es + 2 * stats_bytes, peak, bw),
+                           **(split_bound(n_ops * B * H * S * S * D,
+                                          n_io * n * es + 2 * stats_bytes, peaks)
+                              if dtype == torch.float32 else {}),
                            **timing}
                     if timed:
                         rec.update(rates(n_ops * B * H * S * S * D, rec))
@@ -1307,7 +1367,9 @@ ATTN_PARAM_LEAVES = ("to_q.", "to_k.", "to_v.", "add_q_proj.", "add_k_proj.",
 
 def grad_parity_phase():
     """The 375M loss_given_noise at B=2 with grad, the attention backward
-    on the kernels and on the composite."""
+    on the kernels and on the composite. Returns {dtype: the kernels'
+    launches of one loss and gradient, a training step's, under the kernel
+    backward}."""
     import torch
 
     from ladcast_torch.config import (
@@ -1333,6 +1395,7 @@ def grad_parity_phase():
             raise
     else:
         raise AssertionError("norm_rope accepted a CUDA input that requires grad")
+    per_step = {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         _, step = make_ar_train_step(cfg, EDMSchedulerConfig(), NoiseSamplerConfig(),
@@ -1386,8 +1449,10 @@ def grad_parity_phase():
                        for k in ("flash_bwd_dq", "flash_bwd_dkv",
                                  "fused_attention_lse"))):
             raise AssertionError(f"375M gradient parity {dname}: {rec}")
+        per_step[dname] = launches["kernel"]
         del model, params, grads
         torch.cuda.empty_cache()
+    return per_step
 
 
 def same_tree(a, b):
@@ -1502,15 +1567,14 @@ def dit_1p6b_phase(tmp, latents):
     error of its parallel: section (8-rank model groups) in one process, and
     with the section dropped, as a one-card user must, TRAIN_STEPS_1P6B steps run
     through K1-lse and K3 at 16 heads, remat as the yaml sets it. The
-    steps' 26 GB checkpoint is not written (the 375M training phase checks
-    the checkpoint path)."""
+    steps' 26 GB checkpoint is not written (``--skip_state_ckpt``; the 375M
+    training phase checks the checkpoint path)."""
     import torch
 
     from ladcast_torch.cli import train_ar
     from ladcast_torch.config import ladcast_1p6b_config
     from ladcast_torch.models.ladcast_dit import LaDCastTransformer3D, build_dit
     from ladcast_torch.ops import flash_attention as fa
-    from ladcast_torch.train import checkpoint as ckpt
 
     dev = torch.device("cuda")
     cfg = ladcast_1p6b_config()
@@ -1554,7 +1618,8 @@ def dit_1p6b_phase(tmp, latents):
     def args(steps, out):
         return train_ar.build_parser().parse_args(
             ["--latents", latents, "--num_steps", str(steps), "--output_dir",
-             os.path.join(tmp, out), "--log_every", "1", "--seed", "0"])
+             os.path.join(tmp, out), "--log_every", "1", "--seed", "0",
+             "--skip_state_ckpt"])
 
     try:
         train_ar.run(LADCAST_1P6B_YAML, args(0, "1p6b_refused"))
@@ -1566,16 +1631,13 @@ def dit_1p6b_phase(tmp, latents):
     if "does not divide 1 devices" not in refusal:
         raise AssertionError(f"1.6B parallel: section refused with {refusal!r}")
     one_card = {k: v for k, v in LADCAST_1P6B_YAML.items() if k != "parallel"}
-    skipped = []
-    save_state, ckpt.save_state = ckpt.save_state, lambda mgr, step, state: skipped.append(step)
     _reset_launches(fa)
     torch.cuda.reset_peak_memory_stats()
-    try:
-        t0 = time.perf_counter()
-        res = train_ar.run(one_card, args(TRAIN_STEPS_1P6B, "1p6b"))
-        wall_s = time.perf_counter() - t0
-    finally:
-        ckpt.save_state = save_state
+    t0 = time.perf_counter()
+    res = train_ar.run(one_card, args(TRAIN_STEPS_1P6B, "1p6b"))
+    wall_s = time.perf_counter() - t0
+    ckpt_dir = os.path.join(tmp, "1p6b", "ckpts")
+    written = sorted(os.listdir(ckpt_dir)) if os.path.isdir(ckpt_dir) else []
     hist = res["history"]
     step_ms = [r["step_s"] * 1e3 for r in hist]
     launches = _launches(fa)
@@ -1597,14 +1659,14 @@ def dit_1p6b_phase(tmp, latents):
                         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
                         "run_wall_s": wall_s, "launches": launches,
                         "expected_launches": expected,
-                        "checkpoint_steps_not_written": skipped}}
+                        "skip_state_ckpt": True, "checkpoints_written": written}}
     emit(rec)
     del res, hist
     torch.cuda.empty_cache()
     finite = all(math.isfinite(x) for x in rec["training"]["loss"]
                  + rec["training"]["grad_norm"])
     if (rec["training"]["steps"] != TRAIN_STEPS_1P6B or not finite
-            or launches != expected):
+            or launches != expected or written):
         raise AssertionError(f"1.6B training: {rec}")
     return rec
 
@@ -1937,6 +1999,7 @@ def chain_phase(tmp, forecast, device="cuda"):
     from ladcast_torch.config import DCAEConfig, config_from_dict
     from ladcast_torch.data.time_utils import add_hours_int
     from ladcast_torch.models.dcae import SphereConv
+    from ladcast_torch.ops import dense_conv as dc
     from ladcast_torch.ops import flash_attention as fa
     from ladcast_torch.ops.dense_conv import pack_dense_weight
 
@@ -2087,18 +2150,22 @@ def chain_phase(tmp, forecast, device="cuda"):
     leads = 4
     expected = {k: len(inits) * leads * v for k, v in dec_convs.items()}
     launches = _conv_launches()
+    # the fp32 decode's dense convs, every one on the fp32 kernel
+    f32_launches = dc.dense_conv_forward.f32_launches
     arrays = {f: np.load(os.path.join(scores_dir, f))
               for f in sorted(os.listdir(scores_dir)) if f.endswith(".npy")
               and ".rank" not in f}
     verdict = compare_baseline.compare(scores_dir, step_size_hour=6)
     rec = {"phase": "chain_evaluate_ens", "init_times": [r["init_time"] for r in inits],
            "members": 20, "leads": leads, "dtype": "float32",
+           "card": nvidia_smi_line() if device == "cuda" else None,
            "decode_s": [r["decode_s"] for r in inits],
            "score_s": [r["score_s"] for r in inits],
            "per_init_s": [r["seconds"] for r in inits], "run_wall_s": wall_s,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
            "host_peak_rss_gb": host_peak_rss_gb(), "tmp_dir_gb": dir_gb(tmp),
            "launches": launches, "expected_launches": expected,
+           "f32_kernel_launches": f32_launches,
            "shapes": {k: list(v.shape) for k, v in arrays.items()},
            "finite": {k: bool(np.isfinite(v).all()) for k, v in arrays.items()},
            "summary_vars": len(res["summary"]),
@@ -2106,6 +2173,8 @@ def chain_phase(tmp, forecast, device="cuda"):
                                                          "all_pass")}}
     emit(rec)
     check_launches("evaluate_ens", launches, expected)
+    check_launches("evaluate_ens, the fp32 dense kernel", f32_launches,
+                   expected["dense_conv"] if device == "cuda" else 0)
     if (len(inits) != 2 or not all(rec["finite"].values())
             or rec["shapes"]["rank_hist.npy"] != [2, 84, leads, 21]
             or verdict["num_scored"] == 0):
@@ -2709,7 +2778,9 @@ def parallel_phase(tmp, latents, training, dit_1p6b, forecast, chain,
        as the yaml sets it) and ``train_dcae`` as the chain runs it (DDP), each
        held to its single-device run (``training``, ``dit_1p6b``,
        ``chain``): losses per step, launches, ms per step and peak memory
-       beside that run's; no checkpoint is written.
+       beside that run's; no checkpoint is written (``train_ar
+       --skip_state_ckpt``; ``train_dcae``, which has no such flag, through
+       a stand-in ``save_state``).
     2. Two processes on the one card over gloo: ``pred_rollout
        --shard_ensemble`` as the forecast phase's Heun run (20 members, 10
        per rank, with the decode), its latents held to that run's per
@@ -2762,7 +2833,7 @@ def parallel_phase(tmp, latents, training, dit_1p6b, forecast, chain,
             args = train_ar.build_parser().parse_args(
                 ["--latents", latents, "--num_steps", str(steps), "--output_dir",
                  os.path.join(tmp, name), "--log_every", "1", "--seed", "0",
-                 *flags, *dev_args])
+                 "--skip_state_ckpt", *flags, *dev_args])
             base_gb = reset()
             t0 = time.perf_counter()
             res = train_ar.run(yaml, args)
@@ -2959,7 +3030,7 @@ CATEGORIES = [("fused_attention", ("fa_bf16_wgmma_kernel", "fa_f32_kernel")),
                              "bwd_dq_f32_kernel", "bwd_dkv_f32_kernel")),
               ("norm_rope", ("norm_rope_kernel",)),
               ("flash_plain (K6)", ("fa_plain_wgmma_kernel", "fa_plain_split_kernel")),
-              ("dense_conv (K4)", ("conv_bf16_wgmma_kernel", "conv_f32_kernel")),
+              ("dense_conv (K4)", ("conv_bf16_wgmma_kernel", "conv_f32_wgmma_kernel")),
               ("depthwise_conv (K5)", ("dw_rows_kernel",)),
               ("foreach (AdamW, EMA, norms)", ("multi_tensor_apply",)),
               ("cudnn_conv", ("fprop", "dgrad", "conv", "winograd", "nchwToNhwc",
@@ -3082,6 +3153,12 @@ def main():
     if not k4 or any(not v["sass"].get("HGMMA") or v["sass"].get("HMMA")
                      or not clean_build(v) for v in k4.values()):
         raise AssertionError(f"conv_bf16_wgmma_kernel as built: {k4}")
+    # K4 in fp32 the same, in both instances (N tiles of 96 and 128)
+    k4f = {k: v for k, v in reports["dense_conv"].items()
+           if k.startswith("conv_f32_wgmma_kernel")}
+    if len(k4f) != 2 or any(not v["sass"].get("HGMMA") or v["sass"].get("HMMA")
+                            or not clean_build(v) for v in k4f.values()):
+        raise AssertionError(f"conv_f32_wgmma_kernel as built: {k4f}")
     # K6 in every tensor-core instance (three head sizes, one or three
     # planes): wgmma, TMA loads, no mma.sync, no spills, no note of ptxas's;
     # the split pass is reported only
@@ -3109,7 +3186,7 @@ def main():
     model_parity_phase()
     emit({"phase": "model_parity_done", "wall_s": time.perf_counter() - t0})
     t0 = time.perf_counter()
-    grad_parity_phase()
+    grad_launches = grad_parity_phase()
     emit({"phase": "grad_parity_done", "wall_s": time.perf_counter() - t0})
     t0 = time.perf_counter()
     dcae_parity_phase()
@@ -3158,13 +3235,16 @@ def main():
             "flash_bwd_dkv": ("ladcast_torch/csrc/flash_bwd.cu", f"{src}:318"),
             "dense_conv": ("ladcast_torch/csrc/dense_conv.cu",
                            "ladcast_tpu/ops/pallas/dense_conv.py:83"),
+            "dense_conv_f32": ("ladcast_torch/csrc/dense_conv.cu",
+                               "ladcast_tpu/ops/pallas/dense_conv.py:83"),
             "depthwise_conv": ("ladcast_torch/csrc/depthwise_conv.cu",
                                "ladcast_tpu/ops/pallas/depthwise_conv.py:101"),
             "flash_attention": ("ladcast_torch/csrc/flash_plain.cu", f"{src}:601")}
 
-    def entry(kname, recs, path_launches, main_case="dual_2250", batch=None):
+    def entry(kname, recs, path_launches, main_case="dual_2250", batch=None,
+              dtype="bfloat16"):
         main = next(r for r in recs if r["case"] == main_case
-                    and r["dtype"] == "bfloat16" and r.get("circular", True)
+                    and r["dtype"] == dtype and r.get("circular", True)
                     and batch in (None, r["B"]))
         return {"name": kname, "route": "cuda", "source": meta[kname][0],
                 "replaces": meta[kname][1], "launches": path_launches,
@@ -3175,6 +3255,14 @@ def main():
                 **{k: main[k] for k in ("library_op", "tflops", "bound_share",
                                         "bound_passes", "library_rel_l2",
                                         "library_bf16p_ms") if k in main}}
+
+    def fp32_of(recs, cases):
+        """The fp32 FMA kernels of K1 and K3 (no default path runs them;
+        ``train_ar --compute_dtype float32`` does): their timed cases."""
+        keys = ("B", "ms", "plain_ms", "library_ms", "library_op", "library_tf32",
+                "bound_ms", "bound_by", "split_bound_ms", "tflops", "bound_share")
+        return {r["case"]: {k: r[k] for k in keys if k in r} for r in recs
+                if r["dtype"] == "float32" and r["case"] in cases and "ms" in r}
 
     def parallel_launches(kname):
         """The parallel phase's launches of a kernel, per run (both ranks'
@@ -3201,12 +3289,16 @@ def main():
         e["int8_forecast_launches"] = int8["forecast"]["launches"][kname]
         e["data_sources_train_ar_launches"] = data["train_ar"]["launches"][kname]
         e["parallel_launches"] = parallel_launches(kname)
+        if kname == "fused_attention":
+            e["fp32"] = fp32_of(results[kname], ("dual_2250", "refiner_450"))
         summary.append(e)
     e = entry("fused_attention_lse", results["fused_attention_lse"],
               train_launches["fused_attention_lse"])
     e["batch"] = 4
     e["data_sources_train_ar_launches"] = data["train_ar"]["launches"]["fused_attention_lse"]
     e["parallel_launches"] = parallel_launches("fused_attention_lse")
+    e["fp32"] = fp32_of(results["fused_attention_lse"], ("dual_2250", "refiner_450"))
+    e["fp32_launches_per_step"] = grad_launches["float32"]["fused_attention_lse"]
     summary.append(e)
     pair = next(r for r in results["flash_bwd_pair"] if r["case"] == "dual_2250"
                 and r["dtype"] == "bfloat16")
@@ -3222,6 +3314,8 @@ def main():
                                                   "bound_ms", "tflops", "bound_share")}
         e["data_sources_train_ar_launches"] = data["train_ar"]["launches"][kname]
         e["parallel_launches"] = parallel_launches(kname)
+        e["fp32"] = fp32_of(results[kname], ("dual_2250", "refiner_450", "dual_2250_h16"))
+        e["fp32_launches_per_step"] = grad_launches["float32"][kname]
         summary.append(e)
     for kname in ("dense_conv", "depthwise_conv"):
         case, batch = KERNEL_LINE_CASES[kname]
@@ -3243,12 +3337,25 @@ def main():
                                    for stage in ("encode", "decode")}
         e["int8_forecast_launches"] = int8["forecast"]["launches"][kname]
         e["parallel_launches"] = parallel_launches(kname)
-        sc = next(r for r in scoring[kname]
-                  if r["case"] == KERNEL_LINE_CASES[kname][0])
-        e["fp32_scoring"] = {k: sc[k] for k in ("case", "B", "ms", "plain_ms",
-                                                "library_ms", "bound_ms", "bound_by",
-                                                "tflops", "bound_share")}
+        if kname == "depthwise_conv":  # one kernel for both dtypes
+            sc = next(r for r in scoring[kname]
+                      if r["case"] == KERNEL_LINE_CASES[kname][0])
+            e["fp32_scoring"] = {k: sc[k] for k in ("case", "B", "ms", "plain_ms",
+                                                    "library_ms", "bound_ms", "bound_by",
+                                                    "tflops", "bound_share")}
         summary.append(e)
+    # the fp32 K4 on its path, the scorer's fp32 decode: launches per run of
+    # evaluate_ens over the chain's init times, times at its B = 20
+    ev = chain["evaluate_ens"]
+    e = entry("dense_conv_f32", scoring["dense_conv"], ev["f32_kernel_launches"],
+              KERNEL_LINE_CASES["dense_conv"][0], SCORE_BATCH, "float32")
+    e["batch"] = SCORE_BATCH
+    e["cuda_core_bound_ms"] = next(
+        r["cuda_core_bound_ms"] for r in scoring["dense_conv"]
+        if r["case"] == KERNEL_LINE_CASES["dense_conv"][0])
+    e["launches_per_init_time"] = ev["f32_kernel_launches"] // len(ev["init_times"])
+    e["decode_s_per_init_time"] = ev["decode_s"]
+    summary.append(e)
     e = entry("flash_attention", results["flash_attention"], k6_launches, "s2250")
     e["batch"] = 2
     summary.append(e)

@@ -13,8 +13,10 @@ cpu`` is given: one device, or one process per card under ``torchrun
 fp32 master weights with
 ``--compute_dtype`` compute, AdamW with global-norm clip 1.0 and the
 config's LR schedule, EMA, torch checkpoints with rotation under
-``<output_dir>/ckpts``, and one JSON line per logged step in
-``<output_dir>/metrics.jsonl``; with ``--val_every N --val_latents
+``<output_dir>/ckpts`` (none with ``--skip_state_ckpt``; ``--hub_export``
+writes the diffusers directories first), and one JSON line per logged step
+in ``<output_dir>/metrics.jsonl`` (and the yaml's ``accelerator.log_with``
+back end: tensorboard or wandb); with ``--val_every N --val_latents
 val.npz``, an ensemble validation every N steps (``train.validation``).
 
 :func:`main` parses the arguments and reads the YAML; :func:`run` trains
@@ -100,6 +102,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--hub_export", action="store_true",
                     help="at each checkpoint, also write the diffusers-layout "
                          "model directories <out>/hub/ar_model{,_ema}")
+    ap.add_argument("--skip_state_ckpt", action="store_true",
+                    help="skip the full-state checkpoints (parameters, "
+                         "optimizer moments, EMA) and write only the "
+                         "--hub_export directories: for runs whose only "
+                         "artifact is the final weights (under FSDP this "
+                         "also saves gathering the whole state to rank 0)")
     ap.add_argument("--num_steps", type=int, default=None)
     ap.add_argument("--num_push_forward_steps", type=int, default=1)
     ap.add_argument("--lat_weighted_loss", action="store_true")
@@ -297,7 +305,8 @@ def run(cfg: dict, args: argparse.Namespace) -> dict:
     (:func:`build_parser`). Returns {"state": the final TrainState,
     "history": one record per logged step, "train_step": the step function
     (see ``train.trainer_ar.make_ar_train_step``), "validations": one
-    record per validation (``--val_every`` with ``--val_latents``)}."""
+    record per validation (``--val_every`` with ``--val_latents``), "rows":
+    the slice of each global batch that this rank fed}."""
     model_cfg = config_from_dict(LaDCastDiTConfig, cfg.get("ar_model", {}))
     if model_cfg.int8_matmuls:
         raise SystemExit("int8_matmuls is an inference-only path (the int8 "
@@ -346,8 +355,9 @@ def run(cfg: dict, args: argparse.Namespace) -> dict:
         schedule=lr_cfg.get("name", "cosine"),
         min_lr=float(lr_cfg.get("min_lr", 0.0)),
     )
-    init_fn, train_step = make_ar_train_step(model_cfg, sched_cfg, ns_cfg,
-                                             tcfg, optimizer, device, mesh, zero)
+    init_fn, train_step = make_ar_train_step(
+        model_cfg, sched_cfg, ns_cfg, tcfg, optimizer, device, mesh, zero,
+        batch_size=dl_cfg.get("batch_size", 4))
 
     lm, ls = static_data.latent_mean_std()
     source = load_latent_source(args.latents or dl_cfg.get("ds_path"), args.reader)
@@ -358,10 +368,11 @@ def run(cfg: dict, args: argparse.Namespace) -> dict:
         sampling_interval=dl_cfg.get("sampling_interval", 1))
     dataset = ARLatentDataset(source, wcfg, mean=lm, std=ls, target_std=0.5)
     # the global batch is batch_size per data replica; every rank computes
-    # the same seeded order and reads its rows (a model group's ranks the
-    # same rows)
+    # the same seeded order and reads its rows: a replica's split over its
+    # model group where they divide, else the replica's rows on every rank
+    # of the group, which then repeats the compute
     global_bs = dl_cfg.get("batch_size", 4) * n_data
-    rows = dist.batch_feed_slice(mesh, global_bs)
+    rows = dist.batch_feed_slice(mesh, global_bs, announce=True)
     shuffle = dl_cfg.get("shuffle", True)
 
     def epoch(seed):
@@ -391,7 +402,8 @@ def run(cfg: dict, args: argparse.Namespace) -> dict:
         run_validation = make_validation(args, sched_cfg, wcfg, tcfg, cfg, device)
     validations = []
     # rank 0 writes the metrics
-    logger = MetricLogger(out_dir if dist.process_index() == 0 else None, config=cfg)
+    logger = MetricLogger(out_dir if dist.process_index() == 0 else None, config=cfg,
+                          log_with=cfg.get("accelerator", {}).get("log_with", "jsonl"))
     ckpt_every = gen_cfg.get("checkpointing_steps", 50000)
     timer = PhaseTimer()
     history = []
@@ -427,15 +439,17 @@ def run(cfg: dict, args: argparse.Namespace) -> dict:
                 t0 = time.perf_counter()  # the step time leaves validation out
             if step % ckpt_every == 0 or step == num_steps:
                 with timer.phase("checkpoint"):
-                    ckpt.save_state(mgr, step, state)
+                    # the inference weights first, then the whole state
                     if args.hub_export:
                         export_hub(os.path.join(out_dir, "hub"), model_cfg,
                                    tcfg, state)
+                    if not args.skip_state_ckpt:
+                        ckpt.save_state(mgr, step, state)
     finally:
         it.close()
         logger.close()
     return {"state": state, "history": history, "validations": validations,
-            "train_step": train_step}
+            "train_step": train_step, "rows": rows}
 
 
 def main(argv=None):

@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks of the tensor-core kernels: mbarriers,
 // TMA tile loads through a tensor map, bulk copies of contiguous bytes,
-// cp.async completion on an mbarrier, ldmatrix from a shared address, wgmma
-// shared-memory descriptors and the bf16 products the kernels issue (the
-// attention forward's two m64n128k16 forms, the flash backward's m64n64k16
-// with both operands in shared memory, the dense conv's m64nNk16 with A
-// from registers for N = 96, 128, 256), warpgroup register reallocation,
+// cp.async completion on an mbarrier, ldmatrix and 128-bit fp32 loads from a
+// shared address, wgmma shared-memory descriptors (128- and 64-byte
+// swizzles) and the bf16 products the kernels issue (the attention forward's
+// two m64n128k16 forms, the flash backward's m64n64k16 with both operands in
+// shared memory, the dense conv's m64nNk16 with A from registers for N = 96,
+// 128, 256), warpgroup register reallocation,
 // named barriers and a one-instruction exp2. Users: the attention forward
 // (fused_attention.cu), the flash backward (flash_bwd.cu) and the dense
 // conv (dense_conv.cu).
@@ -156,6 +157,26 @@ __device__ __forceinline__ uint64_t smem_desc_sw128(const void* p, uint32_t lbo,
          | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16)
          | ((uint64_t)((sbo >> 4) & 0x3FFF) << 32)
          | (1ull << 62);  // layout: 128-byte swizzle
+}
+
+// The same for a K-major tile of 64-byte rows in the 64-byte swizzle (16-byte
+// chunk j of row n stored at chunk j ^ ((n / 2) % 4)): 8-row atoms of 512
+// bytes, 512-byte aligned, sbo = 512 their stride, lbo unused; a k-step of
+// 16 bf16 inside the row advances the start by 32 bytes.
+__device__ __forceinline__ uint64_t smem_desc_sw64(const void* p, uint32_t lbo,
+                                                   uint32_t sbo) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4)
+         | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16)
+         | ((uint64_t)((sbo >> 4) & 0x3FFF) << 32)
+         | (2ull << 62);  // layout: 64-byte swizzle
+}
+
+// Four floats from a 16-byte aligned shared address; not moved across the
+// mbarrier waits that make them visible.
+__device__ __forceinline__ void lds128(float (&v)[4], uint32_t addr) {
+  asm volatile("ld.shared.v4.f32 {%0,%1,%2,%3}, [%4];\n"
+               : "=f"(v[0]), "=f"(v[1]), "=f"(v[2]), "=f"(v[3]) : "r"(addr)
+               : "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {

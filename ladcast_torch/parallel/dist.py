@@ -191,17 +191,44 @@ def host_local_slice(global_batch_size: int) -> slice:
     return slice(r * per, (r + 1) * per)
 
 
-def batch_feed_slice(mesh, global_batch_size: int) -> slice:
+def _model_size(mesh) -> int:
+    return mesh["model"].size() if "model" in mesh.mesh_dim_names else 1
+
+
+def model_rows_split(mesh, global_batch_size: int) -> bool:
+    """Whether the ranks of a ``model`` group split their data replica's
+    rows of the global batch: where the mesh has a model axis of more than
+    one rank and the replica's rows divide over it."""
+    if mesh is None:
+        return False
+    m = _model_size(mesh)
+    return m > 1 and (global_batch_size // mesh["data"].size()) % m == 0
+
+
+def batch_feed_slice(mesh, global_batch_size: int, announce: bool = False) -> slice:
     """The rows of a seeded global batch that this process feeds under
-    ``mesh``, whose ``data`` axis splits the batch: the ranks of one
-    ``model`` group (one data replica) read the same rows. Without a mesh
-    (one process): every row."""
+    ``mesh``: the ``data`` axis splits the batch into replicas' rows, and
+    the ranks of a ``model`` group (HSDP) split their replica's rows where
+    they divide (:func:`model_rows_split`); where they do not, every rank of
+    the group feeds the replica's rows and repeats its compute, which
+    ``announce`` prints once, from the group's first rank of the first
+    replica. Without a mesh (one process): every row. (In the JAX package
+    the ``model`` axis is tensor parallelism: its ranks share the rows and
+    split each product.)"""
     if mesh is None:
         return slice(0, global_batch_size)
     n = mesh["data"].size()
     d = mesh.get_local_rank("data")
     per = global_batch_size // n
     assert per * n == global_batch_size, (global_batch_size, n)
+    m = _model_size(mesh)
+    if model_rows_split(mesh, global_batch_size):
+        k, rows = mesh.get_local_rank("model"), per // m
+        return slice(d * per + k * rows, d * per + (k + 1) * rows)
+    if m > 1 and announce and d == 0 and mesh.get_local_rank("model") == 0:
+        print(f"the model axis repeats the compute: the {per} rows of a data "
+              f"replica do not divide over its {m} model ranks, so each of "
+              f"them feeds all {per} (HSDP splits the memory only)", flush=True)
     return slice(d * per, (d + 1) * per)
 
 

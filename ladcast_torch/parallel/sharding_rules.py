@@ -25,11 +25,15 @@ The regimes (:func:`dit_regime`):
   * ``hsdp``: a ``model`` axis of more than one rank: the ``data`` dim
     replicates and the ``model`` dim shards (HSDP), so the ``model`` axis
     carries the memory split that tensor parallelism and ZeRO carried in
-    JAX. It does not split the compute: the ranks of a model group read
-    the same rows (``dist.batch_feed_slice``, the JAX rule for tensor
-    parallelism) and each runs its replica's whole forward and backward.
-    ``--mesh data=-1 --zero`` (FSDP, each rank its own rows) keeps the
-    memory split and lets every rank work on rows of its own.
+    JAX. The compute splits by rows instead of by products: where a data
+    replica's rows divide over its model group, each rank of the group
+    feeds rows / model of them (``dist.batch_feed_slice``), and the
+    reduce-scatter over ``model`` and the all-reduce over ``data`` average
+    the gradients over every rank, the global batch's mean. Where they do
+    not divide (``configs/ladcast_1p6b.yaml``'s batch 4 over 8 ranks), each
+    rank of the group feeds the replica's rows and repeats its forward and
+    backward, which ``train_ar`` prints once; ``--mesh data=-1 --zero``
+    (FSDP, each rank its own rows) avoids it.
 
 Every regime takes the gradients with ``loss.backward()``
 (``trainer_ar.reduced_grads``), which fires FSDP's reduce-scatter.

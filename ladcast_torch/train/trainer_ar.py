@@ -25,9 +25,10 @@ indices and noise instead, which is how the tests hold the loss to the
 JAX package, whose PRNG differs.
 
 Over a mesh (``parallel.sharding_rules``): each rank's batch is its rows of
-the global batch (``dist.batch_feed_slice``), and every rank draws the
-sigma indices and noise of the whole global batch and keeps its rows, so
-the step is the one-process step on the global batch. The gradients come
+the global batch (``dist.batch_feed_slice``: a data replica's rows, split
+over its model group where they divide), and every rank draws the sigma
+indices and noise of the whole global batch and keeps its rows, so the
+step is the one-process step on the global batch. The gradients come
 from ``loss.backward()`` (:func:`reduced_grads`), whose accumulation into
 ``.grad`` fires FSDP's reduce-scatter; under DDP an explicit all-reduce
 (mean) follows. The logged loss is averaged over the ranks.
@@ -211,8 +212,12 @@ def make_ar_train_step(
     device="cuda",
     mesh=None,
     zero: bool = False,
+    batch_size: Optional[int] = None,
 ):
-    """Returns (init_fn, train_step).
+    """Returns (init_fn, train_step). ``batch_size`` is the rows of one
+    data replica a step (the yaml's ``train_dataloader.batch_size``); a mesh
+    with a model axis needs it, since its ranks may feed all of those rows
+    or their share (``dist.batch_feed_slice``).
 
     init_fn(seed) -> TrainState: a seeded fp32 model on ``device`` (CUDA
       unless the caller asks for the CPU), spread over ``mesh`` with
@@ -302,12 +307,20 @@ def make_ar_train_step(
         return loss, {"loss": loss.detach(),
                       "mean_sigma_index": indices.float().mean()}
 
+    n_data = 1 if mesh is None else mesh["data"].size()
+    if batch_size is None and mesh is not None and "model" in mesh.mesh_dim_names \
+            and mesh["model"].size() > 1:
+        raise ValueError("make_ar_train_step: a mesh with a model axis needs "
+                         "batch_size, the rows of one data replica")
+
     def train_step(state: TrainState, batch: Batch, seed: int) -> Dict[str, torch.Tensor]:
         clean = batch[1]
         # the draws of the whole global batch; this rank keeps its rows
-        n_data = 1 if mesh is None else mesh["data"].size()
-        total = clean.shape[0] * n_data
+        total = (clean.shape[0] if batch_size is None else batch_size) * n_data
         rows = dist.batch_feed_slice(mesh, total)
+        if rows.stop - rows.start != clean.shape[0]:
+            raise ValueError(f"train_step: {clean.shape[0]} rows, expected this "
+                             f"rank's {rows} of a global batch of {total}")
         g = torch.Generator(device=device).manual_seed(stream_seed(seed, state.step))
         indices = sample_sigma_indices(g, total, state.step, ns_cfg,
                                        sched_cfg)[rows]

@@ -1,7 +1,13 @@
-"""JSON-lines metric logging: one record per logged step in
-``<output_dir>/metrics.jsonl``, and the run's config, dot-flattened, in
-``<output_dir>/config.json``. A logger without an output directory (the
-ranks other than 0 of a process group) writes nothing."""
+"""Metric logging: one JSON record per logged step in
+``<output_dir>/metrics.jsonl`` (always), the run's config, dot-flattened,
+in ``<output_dir>/config.json``, and the back end that ``log_with`` names
+(``accelerator.log_with`` of the yaml): ``tensorboard`` event files under
+``<output_dir>/tb`` through ``torch.utils.tensorboard``, or a ``wandb`` run.
+The port of ``ladcast_tpu/utils/logging_utils.py``: where the back end
+cannot start (its package absent), the JAX logger goes on with JSON lines
+alone without a word; this one prints one line saying so. A logger without
+an output directory (the ranks other than 0 of a process group) writes
+nothing."""
 
 from __future__ import annotations
 
@@ -26,8 +32,9 @@ def flatten_config(d: Dict, prefix: str = "") -> Dict:
 
 
 class MetricLogger:
-    def __init__(self, output_dir: Optional[str], config: Optional[Dict] = None):
-        self._f = None
+    def __init__(self, output_dir: Optional[str], project: Optional[str] = None,
+                 config: Optional[Dict] = None, log_with: str = "jsonl"):
+        self._f = self._wandb = self._tb = None
         if output_dir is None:
             return
         os.makedirs(output_dir, exist_ok=True)
@@ -36,6 +43,19 @@ class MetricLogger:
         if config is not None:
             with open(os.path.join(output_dir, "config.json"), "w") as f:
                 json.dump(flatten_config(config), f, indent=2)
+        try:
+            if log_with == "wandb":
+                import wandb
+
+                self._wandb = wandb.init(project=project or "ladcast_torch",
+                                         config=flatten_config(config or {}))
+            elif log_with == "tensorboard":
+                from torch.utils.tensorboard import SummaryWriter
+
+                self._tb = SummaryWriter(os.path.join(output_dir, "tb"))
+        except Exception as e:  # the back end's package absent or failing
+            print(f"MetricLogger: log_with={log_with!r} unavailable "
+                  f"({type(e).__name__}: {e}); logging JSON lines only", flush=True)
 
     def log(self, metrics: Dict, step: int):
         if self._f is None:
@@ -45,7 +65,19 @@ class MetricLogger:
                     for k, v in metrics.items()})
         self._f.write(json.dumps(rec) + "\n")
         self._f.flush()
+        if self._wandb is not None:
+            self._wandb.log(metrics, step=step)
+        if self._tb is not None:
+            for k, v in metrics.items():
+                try:
+                    self._tb.add_scalar(k, float(v), step)
+                except (TypeError, ValueError):
+                    pass
 
     def close(self):
         if self._f is not None:
             self._f.close()
+        if self._wandb is not None:
+            self._wandb.finish()
+        if self._tb is not None:
+            self._tb.close()

@@ -1,8 +1,9 @@
 """The port's conv kernels (K4 dense, K5 depthwise), the plain flash
 attention (K6) and the sphere conv's two modes against the JAX package, in
 fp32 on the CPU, where each wrapper runs its kernel's plain version; K4's
-packed weight layout; and emulations of K4's strip loop and K5's row walk
-that hold chip_smoke.py's bf16 check to injected faults."""
+packed weight layouts (one bf16 plane, and three of an fp32 weight); and
+emulations of K4's strip loop (bf16, and fp32 on three planes) and K5's
+row walk that hold chip_smoke.py's checks to injected faults."""
 
 import jax
 import jax.numpy as jnp
@@ -116,12 +117,16 @@ def test_conv_wrappers_check_their_inputs():
     xm, km = x.to("meta"), k.to("meta")
     with pytest.raises(ValueError, match="expected cpu or cuda"):
         t_dc.dense_conv_forward(xm, km, SAME3)
-    # a packed weight must hold the tiles the bf16 kernel reads
+    # a packed weight must hold the tiles the kernel reads for the inputs'
+    # dtype: one bf16 plane in 64-channel steps, three in 32-channel steps
+    assert tuple(t_dc.pack_dense_weight(k.bfloat16()).data.shape) == (1, 1, 9, 96, 64)
     packed = t_dc.pack_dense_weight(k)
-    assert tuple(packed.data.shape) == (1, 1, 9, 96, 64)
+    assert tuple(packed.data.shape) == (1, 1, 9, 3, 96, 32)
     bad = t_dc.PackedDenseWeight(packed.data[..., :32, :], 3, 3, 3, 2)
     with pytest.raises(ValueError, match="packed weight of shape"):
         t_dc.dense_conv_forward(xm, bad, SAME3)
+    with pytest.raises(ValueError, match="packed weight of shape"):
+        t_dc.dense_conv_forward(xm, t_dc.pack_dense_weight(k.bfloat16()), SAME3)
     with pytest.raises(ValueError, match="expected cpu or cuda"):
         t_dc.dense_conv_forward(xm, t_dc.PackedDenseWeight(packed.data.to("meta"),
                                                            3, 3, 3, 2), SAME3)
@@ -185,6 +190,54 @@ def test_packed_dense_weight_unpacks_to_hwio(cin, cout):
     got = packed.data.reshape(n_t, n_s, 9, bn, 8, 8)
     assert torch.equal(got[..., rows, torch.arange(8)[None, :] ^ (rows % 8), :], want)
     assert int((packed.data != 0).sum()) == int((w != 0).sum())
+
+
+@pytest.mark.parametrize("cin,cout", [(84, 2016), (89, 252), (252, 89), (2016, 84)])
+def test_three_plane_packed_weight_unpacks_to_hwio(cin, cout):
+    """The fp32 kernel's packed layout: (N tiles of at most 128, steps of
+    32 channels, taps, 3 planes, BN, 32) bf16; each step's channels in
+    F32_K_ORDER, each (BN, 32) tile in the 64-byte swizzle, the planes
+    split_planes' hi, mid, lo, zero past cin and cout; unpacking gives the
+    fp32 HWIO weight back bit for bit."""
+    rng = np.random.RandomState(cin + cout)
+    w = _t(rng.randn(3, 3, cin, cout).astype(np.float32))
+    packed = t_dc.pack_dense_weight(w)
+    bn = t_dc.n_tile(cout, torch.float32)
+    assert bn == (96 if cout <= 96 else 128)
+    n_t, n_s = -(-cout // bn), -(-cin // 32)
+    assert tuple(packed.data.shape) == (n_t, n_s, 9, 3, bn, 32)
+    assert packed.data.dtype == torch.bfloat16 and packed.data.is_contiguous()
+    assert packed.planes == 3 and torch.equal(packed.unpack(), w)
+    assert sorted(t_dc.F32_K_ORDER) == list(range(32))
+    # element (tile t, step s, tap, plane, row n, chunk j ^ (n / 2) % 4, e)
+    # is plane p of w[tap, 32 s + F32_K_ORDER[8 j + e], bn t + n]
+    full = torch.zeros(9, n_s * 32, n_t * bn)
+    full[:, :cin, :cout] = w.reshape(9, cin, cout)
+    want = full.reshape(9, n_s, 32, n_t, bn).permute(3, 1, 0, 4, 2)
+    want = t_dc.split_planes(want[..., list(t_dc.F32_K_ORDER)]).movedim(0, -3)
+    rows = torch.arange(bn)[:, None]
+    got = packed.data.reshape(n_t, n_s, 9, 3, bn, 4, 8)
+    got = got[..., rows, torch.arange(4)[None, :] ^ (rows // 2 % 4), :]
+    assert torch.equal(got.reshape(want.shape), want)
+    assert int((packed.data[:, :, :, 0] != 0).sum()) == int((w != 0).sum())
+
+
+def test_split_planes_round_each_plane_to_nearest():
+    """``split_planes``: each plane the rounding to nearest of what the
+    planes before it left (the kernel's cvt.rn), and the three sum to the
+    value exactly. A split by truncation sums to the value too (8 + 8 + 8
+    bits hold any fp32 significand), so no output check can tell the two
+    apart (see test_smoke_conv_f32_check_catches_faults): this test holds
+    the rounding."""
+    v = torch.from_numpy(np.random.RandomState(4).randn(4096).astype(np.float32))
+    hi, mid, lo = t_dc.split_planes(v).float().unbind(0)
+    assert torch.equal(hi, v.bfloat16().float())
+    assert torch.equal(mid, (v - hi).bfloat16().float())
+    assert torch.equal(lo, (v - hi - mid).bfloat16().float())
+    assert torch.equal((hi + mid) + lo, v)
+    t_hi, t_mid, t_lo = _split_truncated(v)
+    assert torch.equal((t_hi + t_mid) + t_lo, v)
+    assert not torch.equal(t_hi, hi) and not torch.equal(t_mid, mid)
 
 
 @pytest.mark.parametrize("cin,cout", CHANNEL_PAIRS[:4])
@@ -286,17 +339,46 @@ def _k4_tiling(Ho, Wo):
     return min(128 // tc, Ho), tc
 
 
+def _split_truncated(v):
+    """fp32 ``v`` as three bf16 planes, each cut toward zero (a fault of the
+    split: the kernel rounds to nearest), as fp32 tensors."""
+    planes, rest = [], v.float()
+    for _ in range(3):
+        planes.append((rest.view(torch.int32) & -65536).view(torch.float32))
+        rest = rest - planes[-1]
+    return planes
+
+
+def _tap_products(a, w, fault):
+    """One tap of the fp32 K4: fp32 A (pixels, 32) and W (32, Cout) as three
+    bf16 planes each, split to nearest, and the six plane products in the
+    kernel's order, smallest first, into a fresh fp32 sum."""
+    ah, am, al = (_split_truncated(a) if fault == "truncated_split"
+                  else t_dc.split_planes(a).float().unbind(0))
+    wh, wm, wl = t_dc.split_planes(w).float().unbind(0)
+    terms = [(al, wh), (ah, wl), (am, wm), (am, wh), (ah, wm), (ah, wh)]
+    if fault == "drop_hi_wmid":
+        del terms[4]
+    part = torch.zeros(a.shape[0], w.shape[1])
+    for pa, pw in terms:
+        part += pa @ pw
+    return part
+
+
 def _tiled_dense_conv(x, w, p, fault=None, bk=64):
-    """The bf16 K4's loop, emulated: M tiles of TR whole output rows of TC
-    columns; per step of ``bk`` input channels one strip of (TR + kh - 1) x
-    (TC + kw - 1) input pixels (rows outside H zero, the W pads the wrapped
-    columns), from which every tap reads its A: tap (dy, dx) of tile pixel
-    (r, c) is strip pixel (r + dy, c + dx). fp32 accumulation of bf16
-    products, circular W, one cast at the store; with an optional fault
-    injected."""
+    """The K4 loop, emulated: M tiles of TR whole output rows of TC columns;
+    per step of ``bk`` input channels one strip of (TR + kh - 1) x (TC + kw
+    - 1) input pixels (rows outside H zero, the W pads the wrapped columns),
+    from which every tap reads its A: tap (dy, dx) of tile pixel (r, c) is
+    strip pixel (r + dy, c + dx). bf16: fp32 accumulation of bf16 products,
+    circular W, one cast at the store. fp32 x (the fp32 kernel, ``bk`` 32):
+    each tap's six plane products (:func:`_tap_products`; the K order a step
+    is permuted in does not change them) summed into a fresh fp32
+    accumulator and added to the sum. With an optional fault injected."""
     B, H, W, Cin = x.shape
     kh, kw, _, Cout = w.shape
     tr, tc = _k4_tiling(H, W)
+    f32 = x.dtype == torch.float32
     xf = x.float().reshape(B * H, W, Cin)  # rows of all frames, as in memory
     wf = w.float()
     out = torch.empty(B, H, W, Cout)
@@ -330,9 +412,14 @@ def _tiled_dense_conv(x, w, p, fault=None, bk=64):
                                 # the row's last pixel reads on into the
                                 # next strip row's first input column
                                 a[:, -1] = strip[dy + 1:dy + 1 + rows, p]
-                            acc += a @ wf[dy, dx, c0:c0 + bk]
+                            if f32:
+                                acc += _tap_products(
+                                    a.reshape(rows * cols, -1), wf[dy, dx, c0:c0 + bk],
+                                    fault).reshape(rows, cols, Cout)
+                            else:
+                                acc += a @ wf[dy, dx, c0:c0 + bk]
                 out[b, oh0:oh0 + rows, ow0:ow0 + cols] = acc
-    return out.bfloat16()
+    return out if f32 else out.bfloat16()
 
 
 @pytest.mark.parametrize("fault", [None, "drop_tap", "unmasked_halo_row",
@@ -352,6 +439,37 @@ def test_smoke_conv_bf16_check_catches_faults(fault):
     rec = chip_smoke.compare(
         out, ref, chip_smoke.kernel_tolerance("dense_conv", "bfloat16", ref))
     assert rec["ok"] == (fault is None), rec
+
+
+@pytest.mark.parametrize("fault", [None, "drop_hi_wmid", "missing_wrap_column",
+                                   "truncated_split"])
+def test_smoke_conv_f32_check_catches_faults(fault):
+    """chip_smoke.py's fp32 check (|d| <= 1e-4, relative L2 <= 1e-4) of the
+    dense conv kernel against an emulation of the fp32 kernel's loop (three
+    bf16 planes of each value, six plane products a tap, 32-channel steps,
+    circular W) at the decoder's first shape with 1/sqrt(9 Cin)-scaled
+    weights: it passes the faithful loop and fails a dropped hi.Wmid term
+    and a missing wrap column. Planes split by truncation instead of
+    rounding still carry every value exactly, and move the result by less
+    than 1e-6 relative L2, far inside the check: the test says so, and
+    test_split_planes_round_each_plane_to_nearest holds the rounding."""
+    import chip_smoke
+
+    torch.manual_seed(0)
+    x = torch.randn(2, 15, 30, 84)
+    w = torch.randn(3, 3, 84, 40) / (9 * 84) ** 0.5
+    ref = t_dc.dense_conv_plain(x, w, SAME3, True)
+    out = _tiled_dense_conv(x, w, 1, fault, bk=32)
+    rec = chip_smoke.compare(
+        out, ref, chip_smoke.kernel_tolerance("dense_conv", "float32", ref))
+    if fault == "truncated_split":
+        faithful = _tiled_dense_conv(x, w, 1, None, bk=32)
+        assert rec["ok"] and rec["rel_l2"] < 1e-6, rec
+        assert 0 < ((out - faithful).norm() / faithful.norm()).item() < 1e-6
+        return
+    assert rec["ok"] == (fault is None), rec
+    if fault is None:
+        assert rec["rel_l2"] < 1e-6, rec
 
 
 def _walked_depthwise_conv(x, k, p, fault=None, tc=32, max_rows=16, ahead=2):
@@ -503,9 +621,12 @@ def test_conv_and_flash_kernels_match_plain_on_cuda(dtype):
          t_fa.flash_attention_plain, (q, k, v)),
     ]
     for name, fn, plain, args in cases:
-        before = fn.launches
+        before, f32_before = fn.launches, t_dc.dense_conv_forward.f32_launches
         out, ref = fn(*args), plain(*args)
         assert fn.launches == before + 1
+        # fp32 dense convs launch the fp32 kernel (three bf16 planes)
+        assert t_dc.dense_conv_forward.f32_launches - f32_before == int(
+            fn is t_dc.dense_conv_forward and dtype == torch.float32)
         rec = chip_smoke.compare(out, ref, chip_smoke.kernel_tolerance(name, dname, ref))
         assert rec["ok"], (name, rec)
     with pytest.raises(RuntimeError, match="would carry no gradient"):

@@ -142,6 +142,64 @@ def test_single_process_helpers_match_jax():
     assert t_mesh.pad_to_multiple(3, 2) == j_mesh.pad_to_multiple(3, 2) == 4
 
 
+class _StandInMesh:
+    """A (data, model) device mesh as ``batch_feed_slice`` reads it, at the
+    coordinates of one rank, without a process group."""
+
+    class _Axis:
+        def __init__(self, n):
+            self.n = n
+
+        def size(self):
+            return self.n
+
+    mesh_dim_names = ("data", "model")
+
+    def __init__(self, sizes, coords):
+        self.sizes, self.coords = sizes, coords
+
+    def __getitem__(self, name):
+        return self._Axis(self.sizes[self.mesh_dim_names.index(name)])
+
+    def get_local_rank(self, name):
+        return self.coords[self.mesh_dim_names.index(name)]
+
+
+@pytest.mark.parametrize("data,model,batch", [
+    (1, 2, 2), (1, 2, 3), (2, 2, 4), (2, 2, 6), (1, 8, 8), (1, 8, 4)])
+def test_batch_feed_slice_splits_a_replica_over_its_model_group(
+        data, model, batch, capsys):
+    """HSDP's rows, rank by rank of a stand-in (data, model) mesh: where a
+    replica's rows divide over its model group, the group's ranks feed
+    disjoint equal shares that cover the replica, and the replicas cover
+    the global batch; where they do not (3 over 2, 3 over 2 per replica,
+    the shipped 1.6B yaml's 4 over 8), each rank of the group feeds its
+    replica's rows, and one line, printed by one rank, says so."""
+    per = batch // data
+    split = per % model == 0
+    fed = {}
+    for d in range(data):
+        for k in range(model):
+            m = _StandInMesh((data, model), (d, k))
+            assert dist.model_rows_split(m, batch) == split
+            fed[d, k] = dist.batch_feed_slice(m, batch, announce=True)
+    for d in range(data):
+        replica = [fed[d, k] for k in range(model)]
+        if split:
+            assert replica == [slice(d * per + k * per // model,
+                                     d * per + (k + 1) * per // model)
+                               for k in range(model)]
+        else:
+            assert replica == [slice(d * per, (d + 1) * per)] * model
+    rows = sorted(r for s in fed.values() for r in range(s.start, s.stop))
+    assert rows == (list(range(batch)) if split
+                    else sorted(list(range(batch)) * model))
+    printed = capsys.readouterr().out.splitlines()
+    assert len(printed) == (0 if split else 1), printed
+    if not split:
+        assert "repeats the compute" in printed[0]
+
+
 def test_a_group_that_cannot_form_raises(tmp_path):
     """No fallback: a process group asked for and not formed raises, on a
     rank beyond the world, an unknown backend, and (on a host without CUDA)
@@ -184,15 +242,17 @@ def helpers_job():
 
 
 def test_helpers_over_two_ranks(two_ranks):
-    """The JAX semantics over two processes: a model group's ranks feed the
-    same rows, data ranks contiguous halves; init times strided; gathers in
-    rank order; means; the seed folded per rank."""
+    """The JAX semantics over two processes: data ranks feed contiguous
+    halves; init times strided; gathers in rank order; means; the seed
+    folded per rank. A model group's ranks split their replica's rows (in
+    JAX they feed the same rows to a tensor-parallel step; the port's HSDP
+    splits by rows)."""
     r0, r1 = (r["helpers"] for r in two_ranks)
     for r, rec in enumerate((r0, r1)):
         assert rec["rank"] == r and rec["count"] == 2
         assert rec["hsdp"] == (("data", "model"), (1, 2))
         assert rec["data"] == (("data",), (2,))
-        assert rec["feed_hsdp"] == slice(0, 4)  # one data replica
+        assert rec["feed_hsdp"] == slice(2 * r, 2 * r + 2)  # one replica, split
         assert rec["feed_data"] == rec["host"] == slice(2 * r, 2 * r + 2)
         assert rec["items"] == list(range(5))[r::2]
         np.testing.assert_array_equal(rec["arrays0"], [[0, 0], [1, 1]])

@@ -1,8 +1,9 @@
 """The port's trainers over two gloo ranks on the CPU against one process
 and against the JAX package: the AR trainer under DDP (``--mesh data=2``),
-HSDP (``--mesh data=1,model=2``) and FSDP (``--mesh data=2 --zero``), its
-averaged gradients, its checkpoints across the two layouts, and the DCAE
-trainer data-parallel. The ranks come from ``test_torch_parallel.spawn``:
+HSDP (``--mesh data=1,model=2``, the replica's two rows split over the
+model group) and FSDP (``--mesh data=2 --zero``, also with push-forward 2),
+its averaged gradients, its checkpoints across the two layouts, and the
+DCAE trainer data-parallel. The ranks come from ``test_torch_parallel.spawn``:
 one spawn runs every two-rank case of this file (:func:`two_rank_job`),
 since a spawn's start costs tens of seconds on a busy host, and the module
 fixture :func:`world` also runs the one-process references.
@@ -47,8 +48,10 @@ AR_CFG = {
     "optimizer": {"lr": 1e-3},
     "ema": {"ema_update_after_step": 0},
 }
+# flags, the yaml's batch_size (rows per data replica): one row a rank in
+# each regime, HSDP's replica of two rows split over its model group
 REGIMES = {"ddp": (["--mesh", "data=2"], 1), "hsdp": (["--mesh", "data=1,model=2"], 2),
-           "fsdp": (["--mesh", "data=2", "--zero"], 1)}  # flags, batch per rank
+           "fsdp": (["--mesh", "data=2", "--zero"], 1)}
 
 
 def _ar_cfg(batch_size):
@@ -72,7 +75,7 @@ def train_ar_job(cfg, argv, weights=()):
     out = {"loss": [h["loss"] for h in res["history"]],
            "grad_norm": [h["grad_norm"] for h in res["history"]],
            "val": [v["val_latent_crps"] for v in res["validations"]],
-           "step": state.step, "regime": state.regime}
+           "step": state.step, "regime": state.regime, "rows": res["rows"]}
     if "full" in weights:
         out["full"] = dist.full_state_dict(state.model)
     if "own" in weights:
@@ -125,7 +128,8 @@ def grads_job(sd, batch, indices, noise, mesh_spec, zero, remat):
     init_fn, step = make_ar_train_step(
         config.LaDCastDiTConfig(**TINY_DIT), config.EDMSchedulerConfig(),
         config.NoiseSamplerConfig(), ARTrainConfig(compute_dtype="float32", remat=remat),
-        optim.make_optimizer(), device="cpu", mesh=m, zero=zero)
+        optim.make_optimizer(), device="cpu", mesh=m, zero=zero,
+        batch_size=len(indices) // m["data"].size())
     state = init_fn(0)
     state.load_full_params(sd if dist.process_index() == 0 else None)
     rows = dist.batch_feed_slice(m, len(indices))
@@ -215,12 +219,15 @@ def _dcae_argv(root, out):
 FSDP = ["--mesh", "data=2", "--zero"]
 
 
+PF2 = ["--num_push_forward_steps", "2"]
+
+
 def two_rank_job(root, latents, val_latents, jax_inputs):
     """Every two-rank case of this file in one pair of ranks: the three
     regimes' runs (three steps, global batch 2; the FSDP run exports its
-    weights), an FSDP resume of one process's step-3 checkpoint, an FSDP
-    run with a validation rollout, the gradients against JAX, and the
-    DCAE."""
+    weights), an FSDP run with push-forward 2, an FSDP resume of one
+    process's step-3 checkpoint, an FSDP run with a validation rollout, the
+    gradients against JAX, and the DCAE."""
     out = {}
     for regime, (flags, per_rank) in REGIMES.items():
         out[regime] = train_ar_job(
@@ -228,6 +235,8 @@ def two_rank_job(root, latents, val_latents, jax_inputs):
             _argv(latents, os.path.join(root, regime), 3, *flags,
                   *(["--hub_export"] if regime == "fsdp" else [])),
             ("full", "own") if regime == "ddp" else ("full",))
+    out["fsdp_pf2"] = train_ar_job(
+        _ar_cfg(1), _argv(latents, os.path.join(root, "fsdp_pf2"), 3, *FSDP, *PF2))
     out["fsdp_resume"] = train_ar_job(
         _ar_cfg(1), _argv(latents, os.path.join(root, "one_for_fsdp"), 4, *FSDP,
                           "--resume", "latest"))
@@ -258,6 +267,7 @@ def world(tmp_path_factory):
     one = train_ar_job(_ar_cfg(2), _argv(latents, tmp / "one", 3, "--hub_export"), ("own",))
     shutil.copytree(tmp / "one", tmp / "one_for_fsdp")
     refs = {"one": one,
+            "pf2": train_ar_job(_ar_cfg(2), _argv(latents, tmp / "one_pf2", 3, *PF2)),
             "val": train_ar_job(_ar_cfg(2), _argv(val_latents, tmp / "val_one", 1,
                                                   *_val_args(val_latents))),
             "dcae": train_dcae_job(_dcae_cfg(2), _dcae_argv(str(tmp), "dcae_one"))}
@@ -273,11 +283,14 @@ def world(tmp_path_factory):
 
 @pytest.mark.parametrize("regime", list(REGIMES))
 def test_train_ar_over_two_ranks_matches_one(world, regime):
-    """Three steps over two ranks, global batch 2, against one process with
-    batch 2: the same losses, gradient norms and final weights."""
+    """Three steps over two ranks, global batch 2, each rank its own row
+    (HSDP: the replica's two rows split over the model group), against one
+    process with batch 2: the same losses, gradient norms and final
+    weights."""
     one = world["one"]
     r0, r1 = (r[regime] for r in world["ranks"])
     assert one["regime"] == "single" and r0["regime"] == r1["regime"] == regime
+    assert (r0["rows"], r1["rows"]) == (slice(0, 1), slice(1, 2))  # disjoint
     for rec in (r0, r1):  # the logged metrics are the global batch's
         assert rec["step"] == 3
         _close(rec["loss"], one["loss"])
@@ -286,6 +299,33 @@ def test_train_ar_over_two_ranks_matches_one(world, regime):
     assert r1["full"] == {}  # gathered to rank 0
     # rank 0 wrote the run's files, the checkpoints in one process's layout
     assert world["ckpts"][regime] == world["ckpts"]["one"]
+
+
+# Push-forward 2 under FSDP against one process, fp32: two DiT calls a step,
+# each FSDP unit sums the calls' gradients before its reduce-scatter where
+# one device sums them into the whole gradient. Readings of the spread
+# (four seeds, four steps each, two ranks against one process on the CPU):
+# losses within 1.6e-7 relative and gradient norms within 8.2e-7, so the
+# push-forward-1 cases' 1e-5 holds with a margin of twelve. (In bf16 the same
+# runs read 2.6e-4 and 1.9e-3, from the first step on: there a rank's
+# one-row GEMMs round differently from one process's two-row ones, before
+# any push-forward sum; the file's runs are fp32 for that reason.)
+PF2_RTOL = 1e-5
+
+
+def test_fsdp_push_forward_two_matches_one_process(world):
+    """Three steps of ``--num_push_forward_steps 2`` under ``--mesh data=2
+    --zero``, one row a rank, against one process with batch 2: the same
+    losses and gradient norms to PF2_RTOL."""
+    one = world["pf2"]
+    assert one["regime"] == "single" and one["step"] == 3
+    for rank in world["ranks"]:
+        rec = rank["fsdp_pf2"]
+        assert rec["regime"] == "fsdp" and rec["step"] == 3
+        _close(rec["loss"], one["loss"], rtol=PF2_RTOL)
+        _close(rec["grad_norm"], one["grad_norm"], rtol=PF2_RTOL)
+    # the second DiT call's gradient moved the step: push-forward 1 differs
+    assert not np.allclose(one["loss"][1:], world["one"]["loss"][1:], rtol=1e-4)
 
 
 def test_fsdp_validation_matches_one_process(world):
@@ -348,9 +388,9 @@ def test_checkpoints_cross_between_fsdp_and_one_process(world):
 @pytest.mark.parametrize("case", list(GRAD_CASES))
 def test_two_rank_gradients_match_jax(world, case):
     """The JAX loss and gradients of the whole batch (``test_torch_train``'s
-    push-forward-1 case) from two ranks: two rows split one each (DDP,
-    FSDP) or both rows on both ranks (HSDP, with the per-block checkpoint
-    running on the gathered parameters)."""
+    push-forward-1 case) from two ranks: two rows split one each, over the
+    data axis (DDP, FSDP) or over the model group (HSDP, with the per-block
+    checkpoint running on the gathered parameters)."""
     from tests.test_torch_train import _assert_loss_and_grads_match, _jax_loss_and_grads
 
     j_loss, want = _jax_loss_and_grads("pf1")

@@ -376,6 +376,81 @@ def test_cli_trains_checkpoints_and_resumes(tmp_path):
                                     resumed["state"].state_dict())
 
 
+def test_cli_skip_state_ckpt_writes_only_the_hub_export(tmp_path):
+    """``--hub_export --skip_state_ckpt`` (the JAX CLI's flags): the
+    diffusers directories of the final weights and EMA, no state
+    checkpoint; the yaml's ``accelerator.log_with`` reaches the logger
+    (tensorboard's event files under <out>/tb)."""
+    pytest.importorskip("tensorboard")
+    from ladcast_torch.models import hub
+
+    cfg, lat = _cli_fixtures(tmp_path)
+    out = tmp_path / "run"
+    res = t_cli.run({**TINY_AR_CFG, "accelerator": {"log_with": "tensorboard"}},
+                    t_cli.build_parser().parse_args(
+                        ["--latents", lat, "--output_dir", str(out), "--device", "cpu",
+                         "--num_steps", "2", "--hub_export", "--skip_state_ckpt"]))
+    assert res["state"].step == 2
+    assert t_ckpt.make_manager(str(out / "ckpts"), max_to_keep=2).all_steps() == []
+    want = {k: v.detach() for k, v in res["state"].model.state_dict().items()}
+    got = hub.load_pretrained(str(out / "hub" / "ar_model")).params
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
+    names = [n for n, _ in res["state"].model.named_parameters()]
+    ema = hub.load_pretrained(str(out / "hub" / "ar_model_ema")).params
+    for n, p in zip(names, res["state"].ema.params):
+        assert torch.equal(ema[n], p), n
+    assert any(f.startswith("events.out.tfevents") for f in os.listdir(out / "tb"))
+
+
+def _log_both(tmp_path, log_with):
+    """The same records through the port's and the JAX package's loggers:
+    floats, a device scalar and a nested record (JSON only)."""
+    from ladcast_torch.utils.logging_utils import MetricLogger as TorchLogger
+    from ladcast_tpu.utils.logging_utils import MetricLogger as JaxLogger
+
+    cfg = {"general": {"seed": 3}, "optimizer": {"betas": [0.9, 0.99]}}
+    recs = [({"loss": 1.5, "grad_norm": torch.tensor(0.25)}, 1),
+            ({"loss": 1.25, "phases": {"data": 0.5}}, 2)]
+    for name, cls in (("torch", TorchLogger), ("jax", JaxLogger)):
+        logger = cls(str(tmp_path / name), config=cfg, log_with=log_with)
+        for metrics, step in recs:
+            logger.log(metrics, step)
+        logger.close()
+    return [[{k: v for k, v in json.loads(line).items() if k != "wall"}
+             for line in open(tmp_path / name / "metrics.jsonl")]
+            for name in ("torch", "jax")]
+
+
+def test_metric_logger_tensorboard_matches_jax(tmp_path):
+    """``log_with="tensorboard"``: event files under <out>/tb, and the
+    JSON-lines records and config of the JAX logger, apart from the wall
+    clock."""
+    pytest.importorskip("tensorboard")
+    got, want = _log_both(tmp_path, "tensorboard")
+    assert got == want and [r["step"] for r in got] == [1, 2]
+    assert got[0]["grad_norm"] == 0.25 and got[1]["phases"] == {"data": 0.5}
+    for name in ("torch", "jax"):
+        assert any(f.startswith("events.out.tfevents")
+                   for f in os.listdir(tmp_path / name / "tb"))
+    assert (json.loads((tmp_path / "torch" / "config.json").read_text())
+            == json.loads((tmp_path / "jax" / "config.json").read_text()))
+
+
+def test_metric_logger_without_wandb_says_so_once(tmp_path, monkeypatch, capsys):
+    """``log_with="wandb"`` where wandb cannot be imported: JSON lines as the
+    JAX logger writes them, and one printed line (the JAX logger prints
+    nothing)."""
+    import sys
+
+    monkeypatch.setitem(sys.modules, "wandb", None)  # an import that fails
+    got, want = _log_both(tmp_path, "wandb")
+    assert got == want
+    printed = capsys.readouterr().out.splitlines()
+    assert len(printed) == 1 and "log_with='wandb' unavailable" in printed[0]
+
+
 def test_cli_refuses_what_is_not_ported(tmp_path):
     """zarr latents wait; a mesh the run's ranks cannot form raises the JAX
     mesh errors, and a mesh without a data axis exits."""
