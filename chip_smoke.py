@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # one repetition of the bench workload
     python3 chip_smoke.py --reps 10  # the whole 240 h bench workload
     python3 chip_smoke.py --records out/records.jsonl  # keep every record
+    python3 chip_smoke.py --fp32-ab PARENT  # only the fp32 K1 / K3 A/B
 
 Phases, each printed as JSON lines; any failure raises, so the script exits
 non-zero and never prints the last line. Four paths of the port run: the
@@ -21,23 +22,27 @@ latent shards, and the DCAE with timestep conditioning.
      two convs' and the plain attention's libraries, each kernel's (each
      template instance's) registers, shared memory and spills (``-Xptxas
      -v``) and its count of wgmma (HGMMA), TMA-load (UTMALDG), mma.sync
-     (HMMA) and fp32 FMA (FFMA) instructions (``cuobjdump -sass``): the
-     bf16 K1, the bf16 K3 pair (``bwd_dq_bf16_wgmma_kernel``,
-     ``bwd_dkv_bf16_wgmma_kernel``) and all six instances of K6
+     (HMMA) and fp32 FMA (FFMA) instructions (``cuobjdump -sass``): K1
+     and the K3 pair in both dtypes (``fa_bf16_wgmma_kernel``,
+     ``fa_f32_wgmma_kernel``, ``bwd_dq_bf16_wgmma_kernel``,
+     ``bwd_dkv_bf16_wgmma_kernel``, ``bwd_dq_f32_wgmma_kernel``,
+     ``bwd_dkv_f32_wgmma_kernel``) and all six instances of K6
      (``fa_plain_wgmma_kernel``, three head sizes, one or three bf16 planes)
      must have the first two, not the third, and every instance of the bf16
      and the fp32 K4 (``conv_bf16_wgmma_kernel``, ``conv_f32_wgmma_kernel``)
      wgmma and no mma.sync; all of them spill nothing and draw no note from
-     ptxas (a serialised wgmma); K6's split pass is reported only;
+     ptxas (a serialised wgmma); the split passes are reported only;
   2. kernels: each kernel against its plain PyTorch version on the card, in
      bf16 and fp32, at the main path's shapes (B=20, S=2250 dual- and
      single-stream tables, S=450 refiner tables) and a ragged small case,
      with median times over 20 timed runs, the plain version's time, the
      roofline bound and, for the attention, the time of PyTorch's
      ``scaled_dot_product_attention`` on the pre-normed inputs (a
-     yardstick only; the port never calls it; in fp32 with TF32 off), its
-     rate and the bound's share of its time; the fp32 K1 also with the
-     bound of its products as six bf16 plane products (``split_bound_ms``);
+     yardstick only; the port never calls it; in fp32 with TF32 off, with
+     its output's relative L2 to the plain version, ``library_rel_l2``),
+     its rate and the bound's share of its time; the fp32 K1's bound is
+     its products as six bf16 plane products (``bound_passes`` 6), with the
+     CUDA cores' fp32 bound beside it (``cuda_core_bound_ms``);
      the plain flash attention (K6) follows at ``K6_CASES``, bf16 and fp32
      inputs: timed at (2, 2250 / 450, 12, 128), with its bound in
      tensor-core passes (``flash_plain_bound``), SDPA on fp32 copies (the
@@ -74,8 +79,9 @@ latent shards, and the DCAE with timestep conditioning.
      backend asked for its logsumexp beside the lse variant, and of
      PyTorch's SDPA backward on the same pre-normed inputs beside the
      backward, per kernel and for the dq + dk/dv pair against the whole
-     plain and SDPA backward; the fp32 kernels also with their bound as
-     six bf16 plane products (``split_bound_ms``);
+     plain and SDPA backward; the fp32 kernels' bounds as six bf16 plane
+     products beside the CUDA cores' (as the fp32 K1), and SDPA's fp32
+     output and gradients against the plain versions (``library_rel_l2``);
   3. model parity: one 375M DiT forward at B=2 through the kernels and
      through the plain composite, same seeded weights and inputs;
   3b. gradient parity: the 375M training loss at B=2 (injected sigma
@@ -110,6 +116,9 @@ latent shards, and the DCAE with timestep conditioning.
      kernel backward, none of the backward kernels under the composite);
      the last step's checkpoint must restore into a fresh trainer (the
      whole state: parameters, both moments, count, EMA, step);
+  5a. fp32 training: TRAIN_STEPS_F32 steps of the same run under
+     ``--compute_dtype float32``: ms per step, peak memory, losses, and 7
+     launches a step of the fp32 K1-lse and K3 pair;
   5b. the 1.6B: ``config.ladcast_1p6b_config`` at full width on seeded
      weights: its bf16 forward at B=20 (1800 + 450 tokens), finite and
      launching K1 and K2 once per attention, after a parity check against
@@ -180,9 +189,13 @@ latent shards, and the DCAE with timestep conditioning.
      run's two files (one a rank) against a one-process run's merged
      tables (PARALLEL_SCORE_RTOL); wall time and each rank's peak memory;
   7. the kernel summary line (the fp32 K4 an entry of its own, its
-     launches the scorer's; the fp32 K1 and K3, which no default path runs,
-     under their bf16 entries with their launches in one fp32 training
-     step), the card line and, last, the ok line.
+     launches the scorer's; the fp32 K1, K1-lse and K3 entries of their
+     own, their launches phase 5a's, with their other timed cases), the
+     card line and, last, the ok line.
+
+With ``--fp32-ab PARENT``, only the fp32 K1 and K3 at dual_2250 and phase
+5a run, on the checkout at PARENT and on this one in turns (parent, this,
+this, parent), each in a process of its own, and no ok line is printed.
 
 With ``--profile``, one more repetition of the main path runs under
 ``torch.profiler`` after phase 4, and 4 more training steps (kernel
@@ -248,6 +261,15 @@ REL_L2 = {"bfloat16": 5e-3, "float32": 1e-4}
 # the composite round it, reads 2.4e-3 (bf16) and 1.5e-3 (fp32), fp32
 # products from two bf16 terms 6.2e-6, the faithful loop 1.3e-5 and 5.9e-7.
 K6_REL_L2 = {"bfloat16": 5e-4, "float32": 2e-6}
+# The fp32 K1 and K3 carry fp32 products as six plane products of bf16
+# terms (K6's design), so their fp32 relative L2 limits are their own, set
+# between the emulations of their loops at S = 2250
+# (tests/test_torch_flash_f32.py): the faithful loops read 6.8e-7 (K1's
+# output) and 7.8e-7, 7.7e-7, 7.2e-7 (dq, dk, dv); the same loops on two
+# bf16 planes (hi.hi, hi.mid, mid.hi) 6.9e-6 and 8.7e-6, 8.5e-6, 7.1e-6,
+# which the general 1e-4 passes. On the card wgmma's coarser accumulation
+# adds to the faithful error (K6: 1.0e-6 against its emulation's 5.9e-7).
+F32_REL_L2 = {"fused_attention": 3e-6, "flash_bwd_dq": 3e-6, "flash_bwd_dkv": 3e-6}
 MODEL_TOL = {"bfloat16": 2e-2, "float32": 1e-3}  # relative L2, 375M forward
 GRAD_TOL = {"bfloat16": 2e-2, "float32": 1e-3}  # relative L2, 375M gradients
 DCAE_TOL = {"bfloat16": 2e-2, "float32": 1e-3}  # relative L2, kernel vs library convs
@@ -302,6 +324,7 @@ LADCAST_1P6B_YAML = {
     "parallel": {"mesh": {"data": -1, "model": 8}, "zero": True},
 }
 TRAIN_STEPS_1P6B = 6
+TRAIN_STEPS_F32 = 6  # the 375M under --compute_dtype float32
 
 # configs/dcae_84.yaml and configs/dcae_84_ft_decoder.yaml as PyYAML reads
 # them (tests/test_torch_train_dcae.py holds these copies to the files).
@@ -494,7 +517,7 @@ def kernel_tolerance(kernel, dtype_name, ref):
                 "rel_l2": REL_L2["float32"]}
     rel_l2 = (K6_REL_L2 if kernel == "flash_attention" else REL_L2)[dtype_name]
     if dtype_name == "float32":
-        return {"atol": 1e-4, "rtol": 0.0, "rel_l2": rel_l2}
+        return {"atol": 1e-4, "rtol": 0.0, "rel_l2": F32_REL_L2.get(kernel, rel_l2)}
     if kernel == "norm_rope":
         atol = 2e-2
     elif kernel in ("dense_conv", "depthwise_conv"):
@@ -538,7 +561,9 @@ def time_ms(fn, rounds=20, inner=5, warmup=2):
     return statistics.median(s.elapsed_time(e) / inner for s, e in events)
 
 
-def kernel_phase(peaks):
+def kernel_phase(peaks, dtypes=("bfloat16", "float32"), only=None):
+    """K2 and K1 against their plain versions at the main path's shapes, in
+    ``dtypes``, at every case or those named in ``only``."""
     import torch
     import torch.nn.functional as F
 
@@ -569,9 +594,9 @@ def kernel_phase(peaks):
         ("ragged_130", 2, [(110, rope, w_a), (20, None, w_b)], False),
     ]
     results = {"norm_rope": [], "fused_attention": []}
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in (getattr(torch, d) for d in dtypes):
         dname = str(dtype).split(".")[-1]
-        for name, B, segs, timed in cases:
+        for name, B, segs, timed in (c for c in cases if only is None or c[0] in only):
             S = sum(n for n, _, _ in segs)
             cos, sin, w = segment_tables(segs)
             q, k, v = (torch.randn(B, S, H, D, generator=g, device=dev).to(dtype)
@@ -606,13 +631,11 @@ def kernel_phase(peaks):
                    "finite": bool(torch.isfinite(out).all())}
             flops = 4 * B * H * S * S * D
             nbytes = 4 * q.numel() * es + 3 * S * D * 4
-            peak = peak_bf16 if dtype == torch.bfloat16 else peak_f32
-            t_bytes, t_ops = nbytes / bw * 1e3, flops / peak * 1e3
-            rec.update(bound_ms=max(t_bytes, t_ops),
-                       bound_by="bytes" if t_bytes >= t_ops else "operations")
-            if dtype == torch.float32:  # the FMA kernel's products as bf16 planes
-                rec.update(split_bound(flops, nbytes, peaks),
+            if dtype == torch.float32:  # products as six bf16 plane products
+                rec.update(f32_split_bound(flops, nbytes, peaks),
                            library_tf32=torch.backends.cuda.matmul.allow_tf32)
+            else:
+                rec.update(bound(flops, nbytes, peak_bf16, bw))
             if timed:
                 rec["ms"] = time_ms(lambda: fa.fused_attention(q, kn, v, cos, sin, w))
                 rec["plain_ms"] = time_ms(
@@ -623,6 +646,10 @@ def kernel_phase(peaks):
                     lambda: F.scaled_dot_product_attention(qh, kh, vh), inner=1)
                 rec["library_op"] = ("F.scaled_dot_product_attention, on "
                                      + sdpa_with_lse(qh, kh, vh)[0])
+                if dtype == torch.float32:  # does the yardstick keep fp32 products?
+                    rec["library_rel_l2"] = compare(
+                        F.scaled_dot_product_attention(qh, kh, vh).transpose(1, 2),
+                        ref, rec["tol"])["rel_l2"]
                 rec.update(rates(flops, rec))
                 del qh, kh, vh
             emit(rec)
@@ -740,7 +767,7 @@ def conv_kernel_phase(peaks):
                        **compare(out, ref, kernel_tolerance("dense_conv", dname, ref)),
                        "finite": bool(torch.isfinite(out).all()),
                        **(bound(flops, nbytes, peak_bf16, bw) if dtype == torch.bfloat16
-                          else conv_f32_bound(flops, nbytes, peaks))}
+                          else f32_split_bound(flops, nbytes, peaks))}
                 if kind == "production":
                     rec["ms"] = time_ms(
                         lambda: dc.dense_conv_forward(x, wk, pads, circular), **tkw)
@@ -806,7 +833,7 @@ def conv_scoring_phase(peaks):
     model keeps, whose packing is timed apart as ``pack_ms``). Each against
     its plain version, timed beside cuDNN's fp32 ``F.conv2d`` with TF32
     off, the same function; the dense ones' bound in bf16 passes
-    (``conv_f32_bound``) beside the CUDA cores' fp32 bound."""
+    (``f32_split_bound``) beside the CUDA cores' fp32 bound."""
     import torch
     import torch.nn.functional as F
 
@@ -863,7 +890,7 @@ def conv_scoring_phase(peaks):
                        "circular": True,
                        **compare(out, ref, kernel_tolerance(kname, "float32", ref)),
                        "finite": bool(torch.isfinite(out).all()),
-                       **(conv_f32_bound(flops, nbytes, peaks) if dense
+                       **(f32_split_bound(flops, nbytes, peaks) if dense
                           else bound(flops, nbytes, peak_f32, bw)),
                        "f32_kernel_launches": f32_launched,
                        "ms": time_ms(run, **tkw), "plain_ms": time_ms(plain, **tkw),
@@ -1131,22 +1158,13 @@ def bound(flops, nbytes, peak, bw):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def split_bound(flops, nbytes, peaks):
-    """The least time of fp32 products carried by three bf16 planes each:
-    six bf16 plane products per product at the bf16 tensor-core peak,
-    against the bytes. {"split_bound_ms", "split_bound_by"}."""
-    b = bound(6 * flops, nbytes, peaks[0], peaks[2])
-    return {"split_bound_ms": b["bound_ms"], "split_bound_by": b["bound_by"]}
-
-
-def conv_f32_bound(flops, nbytes, peaks):
-    """The fp32 K4's bound: its six bf16 plane products per product at the
-    bf16 tensor-core peak (``bound_passes`` 6) against the bytes; beside
-    it, the bound on the CUDA cores' fp32 peak that the FMA kernel it
-    replaced was held to (``cuda_core_bound_ms``)."""
-    b = split_bound(flops, nbytes, peaks)
-    return {"bound_passes": 6, "bound_ms": b["split_bound_ms"],
-            "bound_by": b["split_bound_by"],
+def f32_split_bound(flops, nbytes, peaks):
+    """The bound of an fp32 kernel whose products run on the tensor cores
+    as six bf16 plane products each (the fp32 K1, K3 and K4): those passes
+    at the bf16 peak (``bound_passes`` 6) against the bytes; beside it, the
+    bound on the CUDA cores' fp32 peak that the FMA kernels they replaced
+    were held to (``cuda_core_bound_ms``)."""
+    return {"bound_passes": 6, **bound(6 * flops, nbytes, peaks[0], peaks[2]),
             "cuda_core_bound_ms": bound(flops, nbytes, peaks[1], peaks[2])["bound_ms"]}
 
 
@@ -1178,9 +1196,10 @@ def sdpa_with_lse(qh, kh, vh):
     raise AssertionError(f"SDPA picks backend {choice} for the attention yardstick")
 
 
-def backward_kernel_phase(peaks):
+def backward_kernel_phase(peaks, dtypes=("bfloat16", "float32"), only=None):
     """K1's lse variant and K3 (dq, dk/dv) against their plain versions
-    at the training shapes."""
+    at the training shapes, in ``dtypes``, at every case or those named in
+    ``only``."""
     import torch
     import torch.nn.functional as F
 
@@ -1192,7 +1211,7 @@ def backward_kernel_phase(peaks):
     from ladcast_torch.ops import flash_attention as fa
 
     dev = torch.device("cuda")
-    peak_bf16, peak_f32, bw, _ = peaks
+    peak_bf16, _, bw, _ = peaks
     cfg = ladcast_375m_config()
     H, D = cfg.num_attention_heads, cfg.attention_head_dim
     H_1P6B = ladcast_1p6b_config().num_attention_heads
@@ -1214,10 +1233,17 @@ def backward_kernel_phase(peaks):
     ]
     results = {"fused_attention_lse": [], "flash_bwd_dq": [], "flash_bwd_dkv": [],
                "flash_bwd_pair": []}
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in (getattr(torch, d) for d in dtypes):
         dname = str(dtype).split(".")[-1]
-        peak = peak_bf16 if dtype == torch.bfloat16 else peak_f32
-        for name, B, H, segs, timed in cases:
+
+        def bound_of(flops, nbytes):
+            """fp32: the products as six bf16 plane products each."""
+            if dtype == torch.float32:
+                return {**f32_split_bound(flops, nbytes, peaks),
+                        "library_tf32": torch.backends.cuda.matmul.allow_tf32}
+            return bound(flops, nbytes, peak_bf16, bw)
+
+        for name, B, H, segs, timed in (c for c in cases if only is None or c[0] in only):
             S = sum(n for n, _, _ in segs)
             cos, sin, w = segment_tables(segs)
             q, k, v, go = (torch.randn(B, S, H, D, generator=g, device=dev).to(dtype)
@@ -1237,12 +1263,8 @@ def backward_kernel_phase(peaks):
                        "fused_attention_lse", dname, ref_lse)),
                    "out": compare(out, ref, kernel_tolerance(
                        "fused_attention", dname, ref)),
-                   **bound(4 * B * H * S * S * D, 4 * n * es + 3 * S * D * 4
-                           + stats_bytes, peak, bw)}
-            if dtype == torch.float32:
-                rec.update(split_bound(4 * B * H * S * S * D, 4 * n * es + 3 * S * D * 4
-                                       + stats_bytes, peaks),
-                           library_tf32=torch.backends.cuda.matmul.allow_tf32)
+                   **bound_of(4 * B * H * S * S * D,
+                              4 * n * es + 3 * S * D * 4 + stats_bytes)}
             if timed:
                 rec["ms"] = time_ms(lambda: fa.fused_attention(
                     q, kn, v, cos, sin, w, return_lse=True))
@@ -1253,6 +1275,9 @@ def backward_kernel_phase(peaks):
                 qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (qn, kn, v))
                 rec["library_op"], lib_call = sdpa_with_lse(qh, kh, vh)
                 rec["library_ms"] = time_ms(lib_call, inner=1)
+                if dtype == torch.float32:  # its output against the plain one
+                    rec["library_rel_l2"] = compare(lib_call()[0].transpose(1, 2), ref,
+                                                    rec["out"]["tol"])["rel_l2"]
                 rec.update(rates(4 * B * H * S * S * D, rec))
                 del qh, kh, vh, lib_call
             emit(rec)
@@ -1285,8 +1310,12 @@ def backward_kernel_phase(peaks):
                         "library_ms": time_ms(lambda: torch.autograd.grad(
                             oh, (qh, kh, vh), gh, retain_graph=True),
                             rounds=10, inner=1),
-                        **bound(14 * B * H * S * S * D,
-                                7 * n * es + 2 * stats_bytes, peak, bw)}
+                        **bound_of(14 * B * H * S * S * D, 7 * n * es + 2 * stats_bytes)}
+                # fp32: does the yardstick keep fp32 products? Its gradients
+                # against the plain backward's
+                lib_grads = dict(zip(("dq", "dk", "dv"), (
+                    x.transpose(1, 2) for x in torch.autograd.grad(
+                        oh, (qh, kh, vh), gh, retain_graph=True))))
             # one record per output; both of dk/dv's carry its one time.
             # Each kernel's plain_ms is its own plain version's; its
             # library_ms is SDPA's backward asked for that kernel's outputs
@@ -1311,14 +1340,14 @@ def backward_kernel_phase(peaks):
                                kname, dname, refs[oname])),
                            "finite": bool(torch.isfinite(o).all()),
                            "same_bits_twice": repeats[oname],
-                           **bound(n_ops * B * H * S * S * D,
-                                   n_io * n * es + 2 * stats_bytes, peak, bw),
-                           **(split_bound(n_ops * B * H * S * S * D,
-                                          n_io * n * es + 2 * stats_bytes, peaks)
-                              if dtype == torch.float32 else {}),
+                           **bound_of(n_ops * B * H * S * S * D,
+                                      n_io * n * es + 2 * stats_bytes),
                            **timing}
                     if timed:
                         rec.update(rates(n_ops * B * H * S * S * D, rec))
+                        if dtype == torch.float32:
+                            rec["library_rel_l2"] = compare(lib_grads[oname], refs[oname],
+                                                            rec["tol"])["rel_l2"]
                     emit(rec)
                     results[kname].append(rec)
                     if not (rec["ok"] and rec["finite"] and rec["same_bits_twice"]):
@@ -1326,7 +1355,7 @@ def backward_kernel_phase(peaks):
             if timed:
                 emit(pair)
                 results["flash_bwd_pair"].append(pair)
-                del qh, kh, vh, oh, gh, lib
+                del qh, kh, vh, oh, gh, lib, lib_grads
             del q, k, v, go, qn, kn, out, ref, lse, ref_lse, delta, dq, dk, dv, refs
         torch.cuda.empty_cache()
     return results
@@ -1367,9 +1396,7 @@ ATTN_PARAM_LEAVES = ("to_q.", "to_k.", "to_v.", "add_q_proj.", "add_k_proj.",
 
 def grad_parity_phase():
     """The 375M loss_given_noise at B=2 with grad, the attention backward
-    on the kernels and on the composite. Returns {dtype: the kernels'
-    launches of one loss and gradient, a training step's, under the kernel
-    backward}."""
+    on the kernels and on the composite."""
     import torch
 
     from ladcast_torch.config import (
@@ -1395,7 +1422,6 @@ def grad_parity_phase():
             raise
     else:
         raise AssertionError("norm_rope accepted a CUDA input that requires grad")
-    per_step = {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         _, step = make_ar_train_step(cfg, EDMSchedulerConfig(), NoiseSamplerConfig(),
@@ -1449,10 +1475,8 @@ def grad_parity_phase():
                        for k in ("flash_bwd_dq", "flash_bwd_dkv",
                                  "fused_attention_lse"))):
             raise AssertionError(f"375M gradient parity {dname}: {rec}")
-        per_step[dname] = launches["kernel"]
         del model, params, grads
         torch.cuda.empty_cache()
-    return per_step
 
 
 def same_tree(a, b):
@@ -1557,6 +1581,85 @@ def training_phase(tmp, latents, profile=False):
         del res, hist
         torch.cuda.empty_cache()
     return results
+
+
+def training_f32_phase(tmp, latents):
+    """TRAIN_STEPS_F32 steps of ``cli.train_ar.run`` with the training
+    phase's yaml and latents under ``--compute_dtype float32`` (the kernel
+    backward): every attention of a step on the fp32 K1-lse and K3, 7
+    launches of each a step. ms per step (median after 2), peak memory,
+    losses, launches; no checkpoint is written."""
+    import torch
+
+    from ladcast_torch.cli import train_ar
+    from ladcast_torch.ops import flash_attention as fa
+
+    args = train_ar.build_parser().parse_args(
+        ["--latents", latents, "--num_steps", str(TRAIN_STEPS_F32), "--output_dir",
+         os.path.join(tmp, "f32"), "--log_every", "1", "--seed", "0",
+         "--compute_dtype", "float32", "--skip_state_ckpt"])
+    _reset_launches(fa)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = train_ar.run(LADCAST_375M_YAML, args)
+    wall_s = time.perf_counter() - t0
+    launches = _launches(fa)
+    hist = res["history"]
+    step_ms = [r["step_s"] * 1e3 for r in hist]
+    rec = {"phase": "training_f32", "steps": len(hist), "batch": 4,
+           "compute_dtype": "float32", "bwd_mode": fa.BWD_MODE,
+           "median_step_ms": statistics.median(step_ms[2:]), "step_ms": step_ms,
+           "loss": [r["loss"] for r in hist], "grad_norm": [r["grad_norm"] for r in hist],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+           "run_wall_s": wall_s, "launches": launches,
+           "launches_per_step": {k: n / max(len(hist), 1) for k, n in launches.items()}}
+    emit(rec)
+    del res, hist
+    torch.cuda.empty_cache()
+    expected = {k: 7 * TRAIN_STEPS_F32 for k in launches}
+    finite = all(math.isfinite(x) for x in rec["loss"] + rec["grad_norm"])
+    if rec["steps"] != TRAIN_STEPS_F32 or not finite or launches != expected:
+        raise AssertionError(f"fp32 training: {rec}, expected launches {expected}")
+    return rec
+
+
+def fp32_ab(parent, order=("parent", "change", "change", "parent")):
+    """The fp32 K1 (B=20) and K1-lse and K3 (B=4) at dual_2250 and the fp32
+    training step, on the checkout at ``parent`` and on this one in turns,
+    each run in a process of its own (the two trees' packages share a name,
+    and each builds its own kernels): every record of a run again, with its
+    ``tree``."""
+    for tree in order:
+        root = Path(parent).resolve() if tree == "parent" else ROOT
+        r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--fp32-only",
+                            str(root)], capture_output=True, text=True, timeout=1500)
+        for line in r.stdout.splitlines():
+            if line.startswith("{"):
+                emit({**json.loads(line), "tree": tree, "root": str(root)})
+        if r.returncode != 0:
+            raise AssertionError(f"the fp32 run on the {tree} tree failed:\n"
+                                 f"{r.stderr[-4000:]}")
+
+
+def fp32_only(peaks, card, root):
+    """What :func:`fp32_ab` runs on one tree: the package at ``root``, on
+    ``sys.path``. Another tree's kernels are held to the general fp32
+    limits that tree's own checks held them to, not to F32_REL_L2."""
+    import torch
+
+    from ladcast_torch.ops import _build
+
+    if Path(root).resolve() != ROOT:
+        F32_REL_L2.clear()
+
+    t0 = time.perf_counter()
+    _build.build_all()
+    emit({"phase": "environment", "nvidia_smi": card, "torch": torch.__version__,
+          "build_s": time.perf_counter() - t0})
+    kernel_phase(peaks, ("float32",), ("dual_2250",))
+    backward_kernel_phase(peaks, ("float32",), ("dual_2250",))
+    with tempfile.TemporaryDirectory() as tmp:
+        training_f32_phase(tmp, synthetic_latents(tmp))
 
 
 def dit_1p6b_phase(tmp, latents):
@@ -3025,9 +3128,11 @@ def parallel_phase(tmp, latents, training, dit_1p6b, forecast, chain,
     return summary
 
 
-CATEGORIES = [("fused_attention", ("fa_bf16_wgmma_kernel", "fa_f32_kernel")),
+CATEGORIES = [("fused_attention", ("fa_bf16_wgmma_kernel", "fa_f32_wgmma_kernel",
+                                    "fa_f32_split_kernel")),
               ("flash_bwd", ("bwd_dq_bf16_wgmma_kernel", "bwd_dkv_bf16_wgmma_kernel",
-                             "bwd_dq_f32_kernel", "bwd_dkv_f32_kernel")),
+                             "bwd_dq_f32_wgmma_kernel", "bwd_dkv_f32_wgmma_kernel",
+                             "bwd_f32_split_kernel")),
               ("norm_rope", ("norm_rope_kernel",)),
               ("flash_plain (K6)", ("fa_plain_wgmma_kernel", "fa_plain_split_kernel")),
               ("dense_conv (K4)", ("conv_bf16_wgmma_kernel", "conv_f32_wgmma_kernel")),
@@ -3098,6 +3203,11 @@ def main():
                          "and 4 more training steps")
     ap.add_argument("--records", default=None, metavar="FILE",
                     help="also write every JSON record to FILE")
+    ap.add_argument("--fp32-ab", default=None, metavar="PARENT",
+                    help="only time the fp32 attention kernels and the fp32 "
+                         "training step on the checkout at PARENT and on this "
+                         "one, in turns (parent, this, this, parent)")
+    ap.add_argument("--fp32-only", default=None, metavar="ROOT", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -3105,7 +3215,7 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, args.fp32_only or str(ROOT))
     try:
         from ladcast_torch.ops import _build
     except ImportError as e:
@@ -3122,6 +3232,12 @@ def main():
     name = torch.cuda.get_device_name(0)
     peaks = next(p[1:] for p in PEAKS if p[0] in name)
     int8_peak = next(p[1] for p in INT8_PEAKS if p[0] in name)
+    if args.fp32_ab or args.fp32_only:
+        if args.fp32_ab:
+            fp32_ab(args.fp32_ab)
+        else:
+            fp32_only(peaks, card, args.fp32_only)
+        return 0
     t0 = time.perf_counter()
     libs = _build.build_all()
     emit({"phase": "environment", "nvidia_smi": card, "device": name,
@@ -3138,10 +3254,14 @@ def main():
                 "flash_plain"):
         reports[lib] = kernel_report(lib)
         emit({"phase": "kernel_build", "library": lib, "kernels": reports[lib]})
-    # K1 and K3 in bf16 must be the Hopper kernels: wgmma, TMA loads
+    # K1 and K3 in both dtypes must be the Hopper kernels: wgmma, TMA loads
+    # (their fp32 split passes are reported only)
     for lib, kname in (("fused_attention", "fa_bf16_wgmma_kernel"),
+                       ("fused_attention", "fa_f32_wgmma_kernel"),
                        ("flash_bwd", "bwd_dq_bf16_wgmma_kernel"),
-                       ("flash_bwd", "bwd_dkv_bf16_wgmma_kernel")):
+                       ("flash_bwd", "bwd_dkv_bf16_wgmma_kernel"),
+                       ("flash_bwd", "bwd_dq_f32_wgmma_kernel"),
+                       ("flash_bwd", "bwd_dkv_f32_wgmma_kernel")):
         k = reports[lib][kname]
         if (not k["sass"].get("HGMMA") or not k["sass"].get("UTMALDG")
                 or k["sass"].get("HMMA") or not clean_build(k)):
@@ -3186,7 +3306,7 @@ def main():
     model_parity_phase()
     emit({"phase": "model_parity_done", "wall_s": time.perf_counter() - t0})
     t0 = time.perf_counter()
-    grad_launches = grad_parity_phase()
+    grad_parity_phase()
     emit({"phase": "grad_parity_done", "wall_s": time.perf_counter() - t0})
     t0 = time.perf_counter()
     dcae_parity_phase()
@@ -3203,6 +3323,9 @@ def main():
         latents = synthetic_latents(tmp)
         training = training_phase(tmp, latents, args.profile)
         emit({"phase": "training_done", "wall_s": time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        training_f32 = training_f32_phase(tmp, latents)
+        emit({"phase": "training_f32_done", "wall_s": time.perf_counter() - t0})
         t0 = time.perf_counter()
         p16 = dit_1p6b_phase(tmp, latents)
         emit({"phase": "dit_1p6b_done", "wall_s": time.perf_counter() - t0})
@@ -3256,13 +3379,12 @@ def main():
                                         "bound_passes", "library_rel_l2",
                                         "library_bf16p_ms") if k in main}}
 
-    def fp32_of(recs, cases):
-        """The fp32 FMA kernels of K1 and K3 (no default path runs them;
-        ``train_ar --compute_dtype float32`` does): their timed cases."""
-        keys = ("B", "ms", "plain_ms", "library_ms", "library_op", "library_tf32",
-                "bound_ms", "bound_by", "split_bound_ms", "tflops", "bound_share")
+    def timed_cases(recs):
+        """Each timed case of a kernel's records beside its main one."""
+        keys = ("B", "H", "ms", "plain_ms", "library_ms", "library_rel_l2",
+                "bound_ms", "bound_by", "tflops", "bound_share")
         return {r["case"]: {k: r[k] for k in keys if k in r} for r in recs
-                if r["dtype"] == "float32" and r["case"] in cases and "ms" in r}
+                if "ms" in r and r["case"] != "dual_2250"}
 
     def parallel_launches(kname):
         """The parallel phase's launches of a kernel, per run (both ranks'
@@ -3289,16 +3411,12 @@ def main():
         e["int8_forecast_launches"] = int8["forecast"]["launches"][kname]
         e["data_sources_train_ar_launches"] = data["train_ar"]["launches"][kname]
         e["parallel_launches"] = parallel_launches(kname)
-        if kname == "fused_attention":
-            e["fp32"] = fp32_of(results[kname], ("dual_2250", "refiner_450"))
         summary.append(e)
     e = entry("fused_attention_lse", results["fused_attention_lse"],
               train_launches["fused_attention_lse"])
     e["batch"] = 4
     e["data_sources_train_ar_launches"] = data["train_ar"]["launches"]["fused_attention_lse"]
     e["parallel_launches"] = parallel_launches("fused_attention_lse")
-    e["fp32"] = fp32_of(results["fused_attention_lse"], ("dual_2250", "refiner_450"))
-    e["fp32_launches_per_step"] = grad_launches["float32"]["fused_attention_lse"]
     summary.append(e)
     pair = next(r for r in results["flash_bwd_pair"] if r["case"] == "dual_2250"
                 and r["dtype"] == "bfloat16")
@@ -3314,8 +3432,25 @@ def main():
                                                   "bound_ms", "tflops", "bound_share")}
         e["data_sources_train_ar_launches"] = data["train_ar"]["launches"][kname]
         e["parallel_launches"] = parallel_launches(kname)
-        e["fp32"] = fp32_of(results[kname], ("dual_2250", "refiner_450", "dual_2250_h16"))
-        e["fp32_launches_per_step"] = grad_launches["float32"][kname]
+        summary.append(e)
+    # the fp32 K1 and K3 on their path, the fp32 training step (every K1
+    # launch there is the lse variant): launches in its run, times at
+    # dual_2250 (K1 at the main path's B = 20, K1-lse and K3 at the
+    # training's B = 4) and the other timed cases, bounds in six bf16 passes
+    for kname in ("fused_attention", "fused_attention_lse", "flash_bwd_dq",
+                  "flash_bwd_dkv"):
+        recs = [r for r in results[kname] if r["dtype"] == "float32"]
+        main = next(r for r in recs if r["case"] == "dual_2250" and "ms" in r)
+        e = entry(kname, recs, training_f32["launches"][kname], dtype="float32")
+        e.update(name=f"{kname}_f32", batch=main["B"],
+                 cuda_core_bound_ms=main["cuda_core_bound_ms"],
+                 launches_per_step=training_f32["launches_per_step"][kname],
+                 timed_cases=timed_cases(recs))
+        if kname.startswith("flash_bwd"):
+            pair = next(r for r in results["flash_bwd_pair"]
+                        if r["case"] == "dual_2250" and r["dtype"] == "float32")
+            e["pair"] = {k: pair[k] for k in ("ms", "plain_ms", "library_ms",
+                                              "bound_ms", "bound_by")}
         summary.append(e)
     for kname in ("dense_conv", "depthwise_conv"):
         case, batch = KERNEL_LINE_CASES[kname]

@@ -1,7 +1,8 @@
 // Shared device helpers: cp.async copies into shared memory with zero fill
 // (the conv kernels' strips and rows), the shared-memory address of a
-// pointer, and the packing of two floats into a bf16 pair (the Hopper
-// kernels' A fragments, hopper.cuh).
+// pointer, the packing of two floats into a bf16 pair (the Hopper
+// kernels' A fragments, hopper.cuh) and their split into bf16 terms (the
+// attention kernels' fp32 operands, P and dS).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -44,6 +45,16 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The bf16 pair nearest (x, y), packed; x and y are left holding what it
+// leaves of them (exact in fp32). Called n times, it gives the n bf16 terms
+// that carry two fp32 values through the tensor cores' products.
+__device__ __forceinline__ uint32_t take_bf16x2(float& x, float& y) {
+  const __nv_bfloat162 t = __floats2bfloat162_rn(x, y);
+  x -= __low2float(t);
+  y -= __high2float(t);
+  return *reinterpret_cast<const uint32_t*>(&t);
 }
 
 }  // namespace ladcast

@@ -62,11 +62,26 @@
 // straight from the fragments (no TMA store), and writes the lse rows.
 // Shared memory: Q 32 KB + 2 stages x (K + V) 128 KB = 160 KB, one block
 // per SM; at S=2250, B=20 the grid is 18 x 240 blocks.
-// fp32 (the parity dtype) runs a plain FMA kernel, 32x32 tiles, on the CUDA
-// cores: wgmma has no fp32 inputs, and TF32 would miss its 1e-4 check.
+// fp32 (the parity dtype, and `train_ar --compute_dtype float32`): wgmma
+// has no fp32 inputs and TF32 would round every product, so the products
+// run on bf16 terms, as in the plain flash attention (K6, flash_plain.cu):
+// a split pass (fa_f32_split_kernel, its time part of the kernel's) norms,
+// rotates and scales each Q row in fp32 (norm_rope4, as the prologue above)
+// and writes it, kn and v as three bf16 planes each (hi, mid, lo, each the
+// rounding to nearest of what the planes before it left); then
+// fa_f32_wgmma_kernel runs K6's loop (flash_plain.cuh) at D = 128 on the
+// planes: S sums the six plane products Qi.Kj^T with i + j <= 2, P is split
+// in registers into three bf16 terms, and each 32-key tile's six Pi.Vj go
+// into a fresh accumulator that is added to O in registers (one
+// accumulator over all tiles is coarser than fp32 adds); its epilogue
+// writes the lse rows. Bound: 6 bf16 passes of each product, 3.77 ms at B=20,
+// S=2250 (against 9.29 ms for fp32 on the CUDA cores), beside about 2 GB of
+// split traffic (0.6 ms). Shared memory: Q's three planes of 128 rows (96
+// KB) and 2 stages of K and V planes (96 KB).
 
 #include <math.h>
 
+#include "flash_plain.cuh"
 #include "hopper.cuh"
 #include "norm_rope.cuh"
 
@@ -325,148 +340,114 @@ fa_bf16_wgmma_kernel(__grid_constant__ const CUtensorMap tm_k,
 }
 
 // ----------------------------------------------------------------- fp32 ---
-constexpr int FM = 32, FN = 32, kFThreads = 256;
-constexpr int LQ = D + 4, LK = D + 1, LP = FN + 1;  // padded smem strides
-constexpr int kSmemF32 = (FM * LQ + FN * LK + FN * D + FM * LP) * (int)sizeof(float);
+namespace fp = ladcast::flash_plain;
+using F32 = fp::Cfg<D, fp::kPlanesF32>;  // K6's loop at D = 128, three planes
+static_assert(fp::kPlanesF32 == ladcast::kPlanes, "one split for both");
+constexpr int kSplitWarps = 8;           // rows a split block takes at once
 
-// Thread (r = tid / 8, part = tid % 8) owns S[r][part + 8j], j < 4, and
-// O[r][part + 8i], i < 16; the 8 threads of a row are consecutive lanes.
-__global__ void __launch_bounds__(kFThreads)
-fa_f32_kernel(const float* __restrict__ q, const float* __restrict__ kn,
-              const float* __restrict__ v, const float* __restrict__ qcos,
-              const float* __restrict__ qsin, const float* __restrict__ qw,
-              float* __restrict__ out, float* __restrict__ lse, int Sq, int Sk,
-              int H, float eps, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* sQ = reinterpret_cast<float*>(smem);
-  float* sK = sQ + FM * LQ;
-  float* sV = sK + FN * LK;
-  float* sP = sV + FN * D;
+struct SplitArgs {
+  const float* x[3];  // q, kn, v: (B, Sq or Sk, H, 128)
+  bf16* planes[3];    // each (3 B, Sq or Sk, H, 128)
+  long long rows[3];  // B S H of each
+};
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int q0 = blockIdx.x * FM;
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const long long rs = (long long)H * D;
-  const float* qb = q + ((long long)b * Sq * H + h) * D;
-  const float* kb = kn + ((long long)b * Sk * H + h) * D;
-  const float* vb = v + ((long long)b * Sk * H + h) * D;
-  float* ob = out + ((long long)b * Sq * H + h) * D;
-
-  for (int r = warp; r < FM; r += kFThreads / 32) {
-    const int s = q0 + r;
-    float x[4] = {0.f, 0.f, 0.f, 0.f};
-    if (s < Sq) {
-      ladcast::load4(qb + s * rs + lane * 4, x);
-      const long long t = (long long)s * D;
+// Every (b, s, head) row of q, kn and v (blockIdx.y 0, 1, 2) as three bf16
+// planes: a warp per row, 4 values a lane. q's rows are normed, rotated and
+// scaled in fp32 first, as the bf16 kernel's prologue does; kn and v are
+// split as they are.
+__global__ void __launch_bounds__(kSplitWarps * 32)
+fa_f32_split_kernel(SplitArgs a, int Sq, int H, const float* __restrict__ qw,
+                    const float* __restrict__ qcos, const float* __restrict__ qsin,
+                    float eps, float scale) {
+  const int which = blockIdx.y, lane = threadIdx.x % 32;
+  const long long rows = a.rows[which];
+  for (long long r = blockIdx.x * (long long)kSplitWarps + threadIdx.x / 32; r < rows;
+       r += (long long)gridDim.x * kSplitWarps) {
+    float x[4];
+    ladcast::load4(a.x[which] + r * D + lane * 4, x);
+    if (which == 0) {  // the same for the whole block
+      const long long t = (r / H) % Sq * D;
       ladcast::norm_rope4(x, qw + t, qcos + t, qsin + t, lane, eps);
 #pragma unroll
       for (int i = 0; i < 4; ++i) x[i] *= scale;
     }
-    ladcast::store4(sQ + r * LQ + lane * 4, x);
+    ladcast::store_planes4(a.planes[which] + r * D + lane * 4, rows * D, x);
   }
+}
 
-  const int r = tid >> 3, part = tid & 7;
-  float o[D / 8];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) o[i] = 0.f;
-  float m = kNegInf, l = 0.f;
+// One block per (128 Q rows, b * H + h): K6's loop over the planes, Q
+// already scaled, with the lse rows.
+__global__ void __launch_bounds__(F32::kThreads, 1)
+fa_f32_wgmma_kernel(__grid_constant__ const CUtensorMap tm_q,
+                    __grid_constant__ const CUtensorMap tm_k,
+                    __grid_constant__ const CUtensorMap tm_v, float* __restrict__ out,
+                    float* __restrict__ lse, int B, int Sq, int Sk, int H) {
+  fp::attention<D, fp::kPlanesF32>(tm_q, tm_k, tm_v, out, lse, B, Sq, Sk, H, D, 1.f);
+}
 
-  const int n_tiles = (Sk + FN - 1) / FN;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * FN;
-    __syncthreads();
-    for (int c = tid; c < FN * (D / 4); c += kFThreads) {
-      const int kr = c / (D / 4), col = (c % (D / 4)) * 4;
-      float kx[4] = {0.f, 0.f, 0.f, 0.f}, vx[4] = {0.f, 0.f, 0.f, 0.f};
-      if (k0 + kr < Sk) {
-        ladcast::load4(kb + (k0 + kr) * rs + col, kx);
-        ladcast::load4(vb + (k0 + kr) * rs + col, vx);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sK[kr * LK + col + i] = kx[i];
-      ladcast::store4(sV + kr * D + col, vx);
-    }
-    __syncthreads();
-
-    float s[FN / 8];
-#pragma unroll
-    for (int j = 0; j < FN / 8; ++j) {
-      const int c = part + 8 * j;
-      float acc = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) acc = fmaf(sQ[r * LQ + d], sK[c * LK + d], acc);
-      s[j] = (k0 + c < Sk) ? acc : kNegInf;
-    }
-    float mx = m;
-#pragma unroll
-    for (int j = 0; j < FN / 8; ++j) mx = fmaxf(mx, s[j]);
-#pragma unroll
-    for (int off = 1; off < 8; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    const float alpha = expf(m - mx);
-    m = mx;
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < FN / 8; ++j) {
-      const float p = expf(s[j] - mx);
-      sP[r * LP + part + 8 * j] = p;
-      sum += p;
-    }
-#pragma unroll
-    for (int off = 1; off < 8; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    l = l * alpha + sum;
-    __syncwarp();  // a row's P is written and read by the same 8 lanes
-#pragma unroll
-    for (int i = 0; i < D / 8; ++i) o[i] *= alpha;
-    for (int c = 0; c < FN; ++c) {
-      const float p = sP[r * LP + c];
-#pragma unroll
-      for (int i = 0; i < D / 8; ++i) o[i] = fmaf(p, sV[c * D + part + 8 * i], o[i]);
-    }
-  }
-
-  if (q0 + r < Sq) {
-#pragma unroll
-    for (int i = 0; i < D / 8; ++i) ob[(q0 + r) * rs + part + 8 * i] = o[i] / l;
-    if (lse != nullptr && part == 0)
-      lse[((long long)b * H + h) * Sq + q0 + r] = m + logf(l);
-  }
+// The fp32 path: the split pass, then the loop. `planes` is bf16 scratch of
+// 3 * 128 * B * H * (Sq + 2 Sk) elements.
+int fused_attention_f32(const float* q, const float* kn, const float* v,
+                        const float* qcos, const float* qsin, const float* qw,
+                        float* out, float* lse, bf16* planes, int B, int Sq, int Sk,
+                        int H, float eps, float scale, cudaStream_t st) {
+  const long long rq = (long long)B * Sq * H, rk = (long long)B * Sk * H;
+  bf16* pq = planes;
+  bf16* pk = pq + fp::kPlanesF32 * rq * D;
+  bf16* pv = pk + fp::kPlanesF32 * rk * D;
+  const SplitArgs a{{q, kn, v}, {pq, pk, pv}, {rq, rk, rk}};
+  const long long blocks = ((rq > rk ? rq : rk) + kSplitWarps - 1) / kSplitWarps;
+  fa_f32_split_kernel<<<dim3((unsigned)(blocks < 2112 ? blocks : 2112), 3),
+                        kSplitWarps * 32, 0, st>>>(a, Sq, H, qw, qcos, qsin, eps, scale);
+  int rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  // plane p of batch b is batch p B + b of each map
+  CUtensorMap tm_q, tm_k, tm_v;
+  rc = hp::encode_bshd_bf16(&tm_q, pq, fp::kPlanesF32 * B, Sq, H, D, fp::kRows);
+  if (rc == 0) rc = hp::encode_bshd_bf16(&tm_k, pk, fp::kPlanesF32 * B, Sk, H, D, F32::BN);
+  if (rc == 0) rc = hp::encode_bshd_bf16(&tm_v, pv, fp::kPlanesF32 * B, Sk, H, D, F32::BN);
+  if (rc != 0) return rc;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      fa_f32_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F32::kSmem);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid((Sq + F32::kBlockRows - 1) / F32::kBlockRows, B * H);
+  fa_f32_wgmma_kernel<<<grid, F32::kThreads, F32::kSmem, st>>>(tm_q, tm_k, tm_v, out, lse,
+                                                                B, Sq, Sk, H);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q, out: (B, Sq, H, 128); kn, v: (B, Sk, H, 128); contiguous, one dtype;
-// lse: null, or (B, H, Sq) fp32. Returns cudaGetLastError(), or the
-// driver's error code when a bf16 tensor map cannot be encoded.
+// lse: null, or (B, H, Sq) fp32; planes: null for bf16 inputs, bf16
+// scratch of 3 * 128 * B * H * (Sq + 2 Sk) elements for fp32 ones. Returns
+// cudaGetLastError(), or the driver's error code when a tensor map cannot
+// be encoded.
 extern "C" int ladcast_fused_attention(const void* q, const void* kn, const void* v,
                                        const float* qcos, const float* qsin,
                                        const float* qw, void* out, float* lse,
-                                       int B, int Sq, int Sk, int H, float eps,
-                                       float scale, int dtype, void* stream) {
+                                       void* planes, int B, int Sq, int Sk, int H,
+                                       float eps, float scale, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == ladcast::kDtypeBF16) {
-    CUtensorMap tm_k, tm_v;
-    int rc = hp::encode_bshd_bf16(&tm_k, kn, B, Sk, H, D, BN);
-    if (rc != 0) return rc;
-    rc = hp::encode_bshd_bf16(&tm_v, v, B, Sk, H, D, BN);
-    if (rc != 0) return rc;
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        fa_bf16_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBf16);
-    if (attr != cudaSuccess) return (int)attr;
-    const dim3 grid((Sq + BM - 1) / BM, B * H);
-    fa_bf16_wgmma_kernel<<<grid, kThreads, kSmemBf16, st>>>(
-        tm_k, tm_v, static_cast<const bf16*>(q), qcos, qsin, qw,
-        static_cast<bf16*>(out), lse, Sq, Sk, H, eps, scale);
-  } else if (dtype == ladcast::kDtypeF32) {
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        fa_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemF32);
-    if (attr != cudaSuccess) return (int)attr;
-    const dim3 grid((Sq + FM - 1) / FM, B * H);
-    fa_f32_kernel<<<grid, kFThreads, kSmemF32, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(kn),
-        static_cast<const float*>(v), qcos, qsin, qw, static_cast<float*>(out),
-        lse, Sq, Sk, H, eps, scale);
-  } else {
-    return (int)cudaErrorInvalidValue;
+  if (dtype == ladcast::kDtypeF32) {
+    if (planes == nullptr) return (int)cudaErrorInvalidValue;
+    return fused_attention_f32(static_cast<const float*>(q), static_cast<const float*>(kn),
+                               static_cast<const float*>(v), qcos, qsin, qw,
+                               static_cast<float*>(out), lse, static_cast<bf16*>(planes),
+                               B, Sq, Sk, H, eps, scale, st);
   }
+  if (dtype != ladcast::kDtypeBF16) return (int)cudaErrorInvalidValue;
+  CUtensorMap tm_k, tm_v;
+  int rc = hp::encode_bshd_bf16(&tm_k, kn, B, Sk, H, D, BN);
+  if (rc != 0) return rc;
+  rc = hp::encode_bshd_bf16(&tm_v, v, B, Sk, H, D, BN);
+  if (rc != 0) return rc;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      fa_bf16_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBf16);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid((Sq + BM - 1) / BM, B * H);
+  fa_bf16_wgmma_kernel<<<grid, kThreads, kSmemBf16, st>>>(
+      tm_k, tm_v, static_cast<const bf16*>(q), qcos, qsin, qw,
+      static_cast<bf16*>(out), lse, Sq, Sk, H, eps, scale);
   return (int)cudaGetLastError();
 }

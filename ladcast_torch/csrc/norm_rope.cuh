@@ -1,4 +1,5 @@
-// Shared device helpers of the norm+RoPE and fused-attention kernels.
+// Shared device helpers of the norm+RoPE, fused-attention and flash
+// backward kernels.
 //
 // A head row of D = 128 values is held by one warp, 4 contiguous values
 // per lane, so an interleaved RoPE pair (2i, 2i+1) never crosses lanes and
@@ -8,6 +9,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "cp_async.cuh"
 
 namespace ladcast {
 
@@ -38,6 +41,22 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float v[4]) {
   t.x = *reinterpret_cast<uint32_t*>(&a);
   t.y = *reinterpret_cast<uint32_t*>(&b);
   *reinterpret_cast<uint2*>(p) = t;
+}
+
+// bf16 planes that carry an fp32 value through the tensor cores' products
+constexpr int kPlanes = 3;
+
+// This lane's 4 values as kPlanes bf16 planes, `plane` elements apart from
+// p: plane n holds the bf16 rounding to nearest of what the planes before
+// it left (exact in fp32), so the planes sum to the value's 24 significant
+// bits. v is consumed.
+__device__ __forceinline__ void store_planes4(__nv_bfloat16* p, long long plane,
+                                              float v[4]) {
+#pragma unroll
+  for (int n = 0; n < kPlanes; ++n) {
+    const uint32_t lo = take_bf16x2(v[0], v[1]);
+    *reinterpret_cast<uint2*>(p + n * plane) = make_uint2(lo, take_bf16x2(v[2], v[3]));
+  }
 }
 
 // fp32 RMS-norm of the warp's 128-value row times the weight row, then the

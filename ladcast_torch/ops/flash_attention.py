@@ -15,6 +15,10 @@ version:
     backward over the pre-normed q and k; :func:`flash_bwd_plain` is the
     plain version of both, :func:`flash_bwd_dq_plain` and
     :func:`flash_bwd_dkv_plain` of each alone.
+  - K1 and K3 on fp32 inputs run their products on the tensor cores in
+    bf16 terms, as K6 does: a split pass writes three bf16 planes of each
+    operand (of Q after its norm, RoPE and scale) into scratch the wrapper
+    allocates (:func:`_plane_scratch`).
   - :func:`flash_attention_forward` (``csrc/flash_plain.cu``, the TPU
     ``_fa_plain_kernel``): flash attention with fp32 products, without norm
     or RoPE, any head size up to 256, on the tensor cores in bf16 terms
@@ -148,14 +152,18 @@ def fused_attention(q: torch.Tensor, kn: torch.Tensor, v: torch.Tensor,
     lse = (torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
            if return_lse else None)
     if out.numel():
+        # fp32: the bf16 planes of the normed Q, kn and v (split_planes)
+        planes = (_plane_scratch(B, H, D, (Sq, Sk, Sk), q.device)
+                  if q.dtype == torch.float32 else None)
         fn = _fn("fused_attention", "ladcast_fused_attention",
-                 [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+                 [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
                  + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
                     ctypes.c_void_p])
         _launched("fused_attention", fn(
             q.data_ptr(), kn.data_ptr(), v.data_ptr(), qcos.data_ptr(),
             qsin.data_ptr(), qw.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(), B, Sq, Sk, H,
+            None if lse is None else lse.data_ptr(),
+            None if planes is None else planes.data_ptr(), B, Sq, Sk, H,
             eps, 1.0 / (D ** 0.5), _DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream))
         fused_attention.launches += 1
@@ -259,12 +267,24 @@ def _launch_bwd(name, symbol, inputs, outputs, scale):
     _refuse_grad(name, inputs)
     if not qn.numel():
         return
-    fn = _fn("flash_bwd", symbol, [ctypes.c_void_p] * (6 + len(outputs))
+    # fp32: the bf16 planes of qn, kn, v and g (split_planes)
+    planes = (_plane_scratch(B, H, D, (Sq, Sk, Sk, Sq), qn.device)
+              if qn.dtype == torch.float32 else None)
+    fn = _fn("flash_bwd", symbol, [ctypes.c_void_p] * (7 + len(outputs))
              + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
                                      ctypes.c_void_p])
-    _launched(name, fn(*(t.data_ptr() for t in inputs + outputs), B, Sq, Sk,
-                       H, scale, _DTYPE_CODES[qn.dtype],
+    _launched(name, fn(*(t.data_ptr() for t in inputs + outputs),
+                       None if planes is None else planes.data_ptr(), B, Sq,
+                       Sk, H, scale, _DTYPE_CODES[qn.dtype],
                        torch.cuda.current_stream(qn.device).cuda_stream))
+
+
+def _plane_scratch(B, H, D, lengths, device):
+    """bf16 scratch for the split pass of the fp32 K1 and K3 kernels: three
+    planes (:func:`split_planes`) of a (B, S, H, D) tensor for each S in
+    ``lengths``, one after another."""
+    n = split_planes(torch.float32, D) * B * H * D * sum(lengths)
+    return torch.empty(n, dtype=torch.bfloat16, device=device)
 
 
 # ------------------------------------------------------------- autograd ---

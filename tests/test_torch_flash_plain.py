@@ -17,12 +17,13 @@ import torch
 import chip_smoke
 from ladcast_torch.ops import flash_attention as t_fa
 
+# K6's loop, which the fp32 fused attention shares, lives in the header
 SOURCE = (Path(__file__).resolve().parent.parent / "ladcast_torch" / "csrc"
-          / "flash_plain.cu")
+          / "flash_plain.cuh")
 
 
 def _constant(name):
-    """A ``constexpr int`` of K6's source."""
+    """A ``constexpr int`` of K6's loop."""
     return int(re.search(rf"constexpr int {name} = (\d+);", SOURCE.read_text()).group(1))
 
 
@@ -127,14 +128,17 @@ def test_smoke_k6_check_holds_the_fp32_contract(dtype, fault):
 
 def test_k6_limits_are_its_own():
     """K6's relative L2 limits are tighter than the other kernels'; the
-    composite it is compared with on the op's path keeps the general ones."""
+    composite it is compared with on the op's path keeps the general ones,
+    and so does K1 in bf16 (in fp32 it has a limit of its own, since it runs
+    K6's loop: tests/test_torch_flash_f32.py)."""
     ref = torch.randn(4, 8)
     for dname, k6, general in (("bfloat16", 5e-4, 5e-3), ("float32", 2e-6, 1e-4)):
         assert chip_smoke.kernel_tolerance("flash_attention", dname, ref)["rel_l2"] == k6
         assert chip_smoke.kernel_tolerance("dot_product_attention", dname,
                                            ref)["rel_l2"] == general
+        k1 = chip_smoke.F32_REL_L2["fused_attention"] if dname == "float32" else general
         assert chip_smoke.kernel_tolerance("fused_attention", dname,
-                                           ref)["rel_l2"] == general
+                                           ref)["rel_l2"] == k1 <= general
 
 
 @pytest.mark.parametrize("dname,passes,ms", [("bfloat16", 4, 0.125800), ("float32", 6, 0.377399)])
