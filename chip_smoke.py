@@ -14,7 +14,11 @@ field files out), and the rest of the user's chain around it (DCAE
 training, latent encoding, statistics and climatology, ensemble scoring,
 the baseline comparison, cyclone tracking, AR training with validation);
 then the forecast with int8 matmuls, the trainers fed from monthly tars and
-latent shards, and the DCAE with timestep conditioning.
+latent shards, the DCAE with timestep conditioning, and the tooling (the
+forecast CLI under the profiler, the compile report, the plots, the
+scaled-up DCAE of configs/dcae_ray_1024.yaml). Every shipped config is read
+from configs/ by ``ladcast_torch.utils.registry.load_yaml``, which needs no
+PyYAML.
 
   1. environment: the card (nvidia-smi), torch and CUDA versions, and the
      build of the CUDA kernels from ``ladcast_torch/csrc`` (one nvcc per
@@ -106,8 +110,8 @@ latent shards, and the DCAE with timestep conditioning.
      7 x 39 times per repetition (the conv kernels once per sphere conv of
      the encode and of each decode); the decode of 80 frames is then timed
      under both conv modes and its two results compared;
-  5. training: ``ladcast_torch.cli.train_ar.run`` with the
-     configs/ladcast_375m.yaml settings (batch 4, 4 target frames, bf16
+  5. training: ``ladcast_torch.cli.train_ar.main`` with ``--config
+     configs/ladcast_375m.yaml`` (batch 4, 4 target frames, bf16
      compute on fp32 masters, AdamW, clip, cosine warmup, EMA) on a
      synthetic 64-frame latent file, 12 steps with the kernel backward (the
      default) and 12 with the composite one (asked for): ms per step,
@@ -152,8 +156,12 @@ latent shards, and the DCAE with timestep conditioning.
      forecast phase's latent files (20 members, 4 leads, fp32 decode;
      seconds per init time split into decode and scores beside the card's
      name and power limit, launches, every dense conv on the fp32 K4,
-     finite metrics), ``compare_baseline``'s ``compare``, ``track`` on the Heun
-     forecast's decoded bundle, and ``train_ar`` for CHAIN_AR_STEPS steps
+     finite metrics; with matplotlib, ``--plot_diagnostics``, whose PNG
+     must open at its figure's size; without it, the flag must refuse
+     before anything is loaded), ``compare_baseline``'s ``compare``,
+     ``track`` on the Heun forecast's decoded bundle against a synthetic
+     IBTrACS track (with matplotlib, ``--plot`` and ``--plot_errors``, the
+     same checks), and ``train_ar`` for CHAIN_AR_STEPS steps
      with a validation rollout every CHAIN_AR_VAL_EVERY (K1 and K2 in the
      rollouts, K1-lse and K3 in the steps);
   6c. int8 forecast: ``pred_rollout --int8_matmuls`` as the Heun run of
@@ -166,6 +174,21 @@ latent shards, and the DCAE with timestep conditioning.
      timed against bf16 ``torch.matmul`` and its bound at the card's int8
      rate (``INT8_PEAKS``), and the whole w8a8 function against
      ``F.linear``;
+  6f. tooling: ``pred_rollout`` as the Heun run of phase 6 without the
+     decode inside ``utils.profiling.device_trace``: the trace's launches
+     of K1, K2, K4 and K5 by their ``__global__`` names (equal to the
+     launch counters and to phase 6's counts), the device's busy and idle
+     shares, the five largest kernel categories and the longest idle gaps
+     with the host's stages and ops in each (``tooling_trace``);
+     ``utils.profiling.compile_report`` over one 375M DiT call at B=20
+     (``tooling_compile_report``: the FLOPs it counts leave out the
+     hand-written kernels, which it lists); the DCAE of
+     configs/dcae_ray_1024.yaml at full width (90 channels, 6 statics,
+     widths 512 to 2048, a 1024-channel latent) on seeded weights in bf16:
+     an encode of (1, 120, 240, 84) fields and a decode of a (1, 15, 30,
+     1024) latent under both conv modes, within DCAE_TOL, with K4 and K5
+     launches, their distinct shapes, ms and peak memory
+     (``tooling_dcae_ray_1024``);
   6d. data sources: the chain's 16 raw frames written as monthly tars in
      the archive's layout ((85, 121, 240) members, a pole row and a
      surface-pressure channel added), read back bit-equal to the ``.npz``
@@ -207,8 +230,8 @@ device's busy share of that run and its kernel time by category.
 import argparse
 import contextlib
 import dataclasses
-import datetime
 import gc
+import importlib.util
 import json
 import math
 import os
@@ -274,101 +297,34 @@ MODEL_TOL = {"bfloat16": 2e-2, "float32": 1e-3}  # relative L2, 375M forward
 GRAD_TOL = {"bfloat16": 2e-2, "float32": 1e-3}  # relative L2, 375M gradients
 DCAE_TOL = {"bfloat16": 2e-2, "float32": 1e-3}  # relative L2, kernel vs library convs
 TRAIN_STEPS = 12
-
-# configs/ladcast_375m.yaml as PyYAML reads it (PyYAML is not needed here;
-# tests/test_torch_train.py holds this copy to the file).
-LADCAST_375M_YAML = {
-    "ar_model": {
-        "in_channels": 84, "out_channels": 84, "num_attention_heads": 12,
-        "attention_head_dim": 128, "num_layers": 2, "num_single_layers": 4,
-        "num_refiner_layers": 1, "mlp_ratio": 4, "patch_size": 1,
-        "patch_size_t": 1, "qk_norm": "rms_norm", "rope_theta": 256.0,
-        "rope_axes_dim": [16, 56, 56],
-        "rope_spatial_grid_start_pos": [-499.5, 5.25],
-        "rope_spatial_grid_end_pos": [508.5, 353.25], "spatial_deg2rad": True,
-        "conditioning_tensor_in_channels": 84,
-        "conditioning_tensor_rope_axes_dim": [16, 56, 56],
-        "incl_time_elapsed": True},
-    "noise_scheduler": {"target": "ladcast_tpu.config.EDMSchedulerConfig",
-                        "params": {"num_train_timesteps": 1000,
-                                   "sigma_data": 0.5}},
-    "noise_sampler": {"P_mean_start": -1.2, "P_std_start": 1.2,
-                      "P_mean_end": -1.2, "P_std_end": 1.2},
-    "optimizer": {"betas": [0.9, 0.999], "eps": "1e-08", "lr": "1e-4",
-                  "weight_decay": "1e-2"},
-    "lr_scheduler": {"name": "cosine", "num_warmup_steps": 1000},
-    "train_dataloader": {
-        "ds_path": None, "batch_size": 4, "start_date": "1979-01-01T05",
-        "end_date": datetime.date(2017, 12, 31), "input_seq_len": 1,
-        "return_seq_len": 4, "sampling_interval": 1,
-        "interval_between_pred": 6, "shuffle": True, "load_in_memory": True},
-    "accelerator": {"log_with": "jsonl"},
-    "ema": {"use_ema": True, "ema_max_decay": 0.9999, "ema_inv_gamma": 1.0,
-            "ema_power": 0.6666667, "ema_update_after_step": 1000},
-    "general": {"seed": 42, "num_training_steps": 100000,
-                "output_dir": "runs/ladcast_375m", "checkpointing_steps": 50000,
-                "checkpoints_total_limit": 3},
-}
-
-# configs/ladcast_1p6b.yaml as PyYAML reads it: the 375M's settings with the
-# 1.6B's heads and depth, remat, and its parallel: section (a TP + ZeRO mesh,
-# which the port refuses; tests/test_torch_train.py holds this copy to the
-# file too).
-LADCAST_1P6B_YAML = {
-    **LADCAST_375M_YAML,
-    "ar_model": {**LADCAST_375M_YAML["ar_model"], "num_attention_heads": 16,
-                 "num_layers": 5, "num_single_layers": 10, "num_refiner_layers": 3},
-    "general": {**LADCAST_375M_YAML["general"], "remat": True,
-                "compute_dtype": "bfloat16", "snr_gamma": None,
-                "output_dir": "runs/ladcast_1p6b"},
-    "parallel": {"mesh": {"data": -1, "model": 8}, "zero": True},
-}
 TRAIN_STEPS_1P6B = 6
 TRAIN_STEPS_F32 = 6  # the 375M under --compute_dtype float32
 
-# configs/dcae_84.yaml and configs/dcae_84_ft_decoder.yaml as PyYAML reads
-# them (tests/test_torch_train_dcae.py holds these copies to the files).
-_DCAE_84_ENCDEC = {
-    "in_channels": 89, "out_channels": 89, "latent_channels": 84,
-    "attention_head_dim": 32,
-    "encoder_block_types": ["ResBlock", "ResBlock", "EfficientViTBlock",
-                            "EfficientViTBlock"],
-    "decoder_block_types": ["ResBlock", "ResBlock", "EfficientViTBlock",
-                            "EfficientViTBlock"],
-    "encoder_block_out_channels": [252, 504, 504, 1008],
-    "decoder_block_out_channels": [252, 504, 504, 1008],
-    "encoder_layers_per_block": [4, 4, 4, 4],
-    "decoder_layers_per_block": [4, 4, 4, 4],
-    "encoder_qkv_multiscales": [[], [], [5], [5]],
-    "decoder_qkv_multiscales": [[], [], [5], [5]],
-    "upsample_block_type": "pixel_shuffle",
-    "downsample_block_type": "pixel_unshuffle", "static_channels": 5}
-DCAE_84_YAML = {
-    "encdec": _DCAE_84_ENCDEC,
-    "optimizer": {"betas": [0.9, 0.999], "eps": "1e-08", "lr": "1e-4",
-                  "weight_decay": "1e-2"},
-    "lr_scheduler": {"name": "cosine", "num_warmup_steps": 1000},
-    "train": {"batch_size": 4, "subbatch_steps": 3, "lat_weighted_loss": True,
-              "num_train_epochs": 30, "epoch_length": 341875},
-    "accelerator": {"log_with": "jsonl"},
-    "ema": {"use_ema": True, "ema_max_decay": 0.9999, "ema_inv_gamma": 1.0,
-            "ema_power": 0.66667, "ema_update_after_step": 1000},
-    "general": {"seed": 42, "output_dir": "runs/dcae_84",
-                "checkpointing_steps": 40000},
-}
-DCAE_84_FT_YAML = {
-    "encdec": _DCAE_84_ENCDEC,
-    "optimizer": {"betas": [0.9, 0.999], "eps": "1e-08", "lr": "2e-5",
-                  "weight_decay": "1e-2"},
-    "lr_scheduler": {"name": "cosine", "num_warmup_steps": 500},
-    "train": {"batch_size": 4, "subbatch_steps": 3, "lat_weighted_loss": True,
-              "ft_decoder_only": True, "num_train_epochs": 5,
-              "epoch_length": 341875},
-    "ema": {"use_ema": True, "ema_max_decay": 0.9999, "ema_inv_gamma": 1.0,
-            "ema_power": 0.66667, "ema_update_after_step": 500},
-    "general": {"seed": 42, "output_dir": "runs/dcae_84_ft",
-                "checkpointing_steps": 20000},
-}
+
+def shipped_yaml(name):
+    """configs/<name>.yaml as ``ladcast_torch.utils.registry.load_yaml``
+    reads it: what PyYAML's ``safe_load`` gives, without PyYAML (the card's
+    machine has none). The phases read the shipped files, and cut steps or
+    sections from what this returns."""
+    from ladcast_torch.utils.registry import load_yaml
+
+    return load_yaml(str(ROOT / "configs" / f"{name}.yaml"))
+
+
+# The shipped configs by the module names tests/test_torch_train.py and
+# tests/test_torch_train_dcae.py read (and hold to PyYAML's reading of the
+# files). Read at first use, not at import: ``--fp32-only`` imports the
+# package of another checkout.
+SHIPPED_YAML = {"LADCAST_375M_YAML": "ladcast_375m", "LADCAST_1P6B_YAML": "ladcast_1p6b",
+                "DCAE_84_YAML": "dcae_84", "DCAE_84_FT_YAML": "dcae_84_ft_decoder"}
+
+
+def __getattr__(name):
+    if name in SHIPPED_YAML:
+        return shipped_yaml(SHIPPED_YAML[name])
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 # The chain phase's cuts: DCAE training steps (two batches: the unrolled and
 # the rolled steps), finetune steps, AR training steps with a validation
 # every CHAIN_AR_VAL_EVERY, the validation's init times, members and hours.
@@ -1526,15 +1482,16 @@ def training_phase(tmp, latents, profile=False):
     # asked for explicitly
     for mode in ("kernel", "composite"):
         out_dir = os.path.join(tmp, mode)
-        args = train_ar.build_parser().parse_args(
-            ["--latents", latents, "--num_steps", str(TRAIN_STEPS), "--output_dir",
-             out_dir, "--log_every", "1", "--seed", "0"])
         prev, fa.BWD_MODE = fa.BWD_MODE, mode
         _reset_launches(fa)
         torch.cuda.reset_peak_memory_stats()
         try:
             t0 = time.perf_counter()
-            res = train_ar.run(LADCAST_375M_YAML, args)
+            # the CLI's entry point, on the shipped file (read without PyYAML)
+            res = train_ar.main(
+                ["--config", str(ROOT / "configs" / "ladcast_375m.yaml"), "--latents",
+                 latents, "--num_steps", str(TRAIN_STEPS), "--output_dir", out_dir,
+                 "--log_every", "1", "--seed", "0"])
             wall_s = time.perf_counter() - t0
         finally:
             fa.BWD_MODE = prev
@@ -1542,6 +1499,7 @@ def training_phase(tmp, latents, profile=False):
         hist = res["history"]
         step_ms = [r["step_s"] * 1e3 for r in hist]
         rec = {"phase": "training", "bwd_mode": mode, "steps": len(hist),
+               "entry": "train_ar.main --config configs/ladcast_375m.yaml",
                "batch": 4, "compute_dtype": "bfloat16",
                "median_step_ms": statistics.median(step_ms[2:]),
                "step_ms": step_ms, "loss": [r["loss"] for r in hist],
@@ -1556,7 +1514,7 @@ def training_phase(tmp, latents, profile=False):
         finite = all(math.isfinite(x) for x in rec["loss"] + rec["grad_norm"])
         if mode == "kernel":
             # the last step's checkpoint into a fresh trainer
-            fresh = train_ar.run(LADCAST_375M_YAML, train_ar.build_parser().parse_args(
+            fresh = train_ar.run(shipped_yaml("ladcast_375m"), train_ar.build_parser().parse_args(
                 ["--latents", latents, "--num_steps", "0", "--output_dir",
                  os.path.join(tmp, "fresh")]))["state"]
             mgr = ckpt.make_manager(os.path.join(out_dir, "ckpts"))
@@ -1601,7 +1559,7 @@ def training_f32_phase(tmp, latents):
     _reset_launches(fa)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    res = train_ar.run(LADCAST_375M_YAML, args)
+    res = train_ar.run(shipped_yaml("ladcast_375m"), args)
     wall_s = time.perf_counter() - t0
     launches = _launches(fa)
     hist = res["history"]
@@ -1725,7 +1683,7 @@ def dit_1p6b_phase(tmp, latents):
              "--skip_state_ckpt"])
 
     try:
-        train_ar.run(LADCAST_1P6B_YAML, args(0, "1p6b_refused"))
+        train_ar.run(shipped_yaml("ladcast_1p6b"), args(0, "1p6b_refused"))
     except ValueError as e:
         refusal = str(e)
     else:
@@ -1733,7 +1691,7 @@ def dit_1p6b_phase(tmp, latents):
                              "parallel: section in one process")
     if "does not divide 1 devices" not in refusal:
         raise AssertionError(f"1.6B parallel: section refused with {refusal!r}")
-    one_card = {k: v for k, v in LADCAST_1P6B_YAML.items() if k != "parallel"}
+    one_card = {k: v for k, v in shipped_yaml("ladcast_1p6b").items() if k != "parallel"}
     _reset_launches(fa)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2027,6 +1985,17 @@ def raw_fields(path, stamps, seed):
     np.savez(path, fields=raw, timestamps=np.asarray(stamps, np.int64))
 
 
+def png_check(path, size):
+    """{"exists", "shape", "ok"}: the PNG at ``path`` opens and is ``size``
+    (rows, columns) pixels, its figure's size at its dpi."""
+    import matplotlib.image as mpimg
+
+    if not os.path.isfile(path):
+        return {"exists": False, "ok": False}
+    shape = list(mpimg.imread(path).shape)
+    return {"exists": True, "shape": shape, "ok": shape[:2] == list(size)}
+
+
 def check_launches(name, got, expected):
     if got != expected:
         raise AssertionError(f"{name}: launches {got}, expected {expected}")
@@ -2042,7 +2011,7 @@ def dcae_grad_parity(model, fields, nan_mask, statics):
     from ladcast_torch.train.optim import make_optimizer
     from ladcast_torch.train.trainer_dcae import DCAETrainConfig, make_dcae_train_step
 
-    cfg = config_from_dict(DCAEConfig, DCAE_84_YAML["encdec"])
+    cfg = config_from_dict(DCAEConfig, shipped_yaml("dcae_84")["encdec"])
     params = list(model.parameters())
     roll = [[37, 11], [200, 93]]  # (x, y) per sample
     for dname in ("float32", "bfloat16"):
@@ -2126,7 +2095,7 @@ def chain_phase(tmp, forecast, device="cuda"):
     _reset_conv_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    res = train_dcae.run(DCAE_84_YAML, args)
+    res = train_dcae.run(shipped_yaml("dcae_84"), args)
     wall_s = time.perf_counter() - t0
     launches = _conv_launches()
     state, hist = res["state"], res["history"]
@@ -2173,7 +2142,7 @@ def chain_phase(tmp, forecast, device="cuda"):
     best_dir = os.path.join(run_dir, "best", f"step-{CHAIN_DCAE_STEPS}")
     loaded, _ = _load_any_params(best_dir, "dcae", None)
     ft_dir = os.path.join(tmp, "dcae_ft")
-    ft = train_dcae.run(DCAE_84_FT_YAML, train_dcae.build_parser().parse_args(
+    ft = train_dcae.run(shipped_yaml("dcae_84_ft_decoder"), train_dcae.build_parser().parse_args(
         ["--data", data["train"], "--init_weights", best_dir, "--num_steps",
          str(CHAIN_FT_STEPS), "--output_dir", ft_dir, "--log_every", "1", "--seed", "1",
          "--device", device]))
@@ -2226,7 +2195,7 @@ def chain_phase(tmp, forecast, device="cuda"):
            "host_peak_rss_gb": {"before_climatology": rss_before,
                                 "after_climatology": host_peak_rss_gb()}}
     emit(rec)
-    cfg = config_from_dict(DCAEConfig, DCAE_84_YAML["encdec"])
+    cfg = config_from_dict(DCAEConfig, shipped_yaml("dcae_84")["encdec"])
     r = cfg.spatial_compression_ratio
     if not (rec["latents_shape"] == [12, 120 // r, 240 // r, cfg.latent_channels]
             and rec["latents_finite"]
@@ -2241,13 +2210,17 @@ def chain_phase(tmp, forecast, device="cuda"):
         shutil.copy(os.path.join(forecast[sampler]["out_dir"], f"latent_{ts}.npy"),
                     score_dir)
     scores_dir = os.path.join(tmp, "scores")
+    score_argv = ["--latent_dir", score_dir, "--truth", data["train"], "--climatology",
+                  clim, "--dcae_params", os.path.join(tmp, "dcae"), "--output_dir",
+                  scores_dir, "--diagnostics", "--device", device]
+    # the plots of the scores and tracks where matplotlib is installed
+    plots = importlib.util.find_spec("matplotlib") is not None
+    diag_png = os.path.join(tmp, "diagnostics.png")
     _reset_conv_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = evaluate_ens.run(evaluate_ens.build_parser().parse_args(
-        ["--latent_dir", score_dir, "--truth", data["train"], "--climatology", clim,
-         "--dcae_params", os.path.join(tmp, "dcae"), "--output_dir", scores_dir,
-         "--diagnostics", "--device", device]))
+        score_argv + (["--plot_diagnostics", diag_png] if plots else [])))
     wall_s = time.perf_counter() - t0
     inits = [r for r in res["records"] if r.get("scored")]
     leads = 4
@@ -2274,26 +2247,58 @@ def chain_phase(tmp, forecast, device="cuda"):
            "summary_vars": len(res["summary"]),
            "compare_baseline": {k: verdict[k] for k in ("num_pass", "num_scored",
                                                          "all_pass")}}
+    if plots:
+        rec["plots"] = {"diagnostics": png_check(diag_png, (1080, 1728))}
+    else:
+        # the flag must refuse, naming matplotlib, before anything is loaded
+        refused_dir = os.path.join(tmp, "scores_refused")
+        t1 = time.perf_counter()
+        try:
+            evaluate_ens.main([a if a != scores_dir else refused_dir for a in score_argv]
+                              + ["--plot_diagnostics", diag_png])
+            refusal = None
+        except SystemExit as e:
+            refusal = str(e)
+        rec["plots"] = "matplotlib absent"
+        rec["plot_refusal"] = {"message": refusal, "seconds": time.perf_counter() - t1,
+                               "loaded_nothing": not os.path.exists(refused_dir)}
+        if not (refusal and "matplotlib" in refusal and not os.path.exists(refused_dir)):
+            raise AssertionError(f"evaluate_ens --plot_diagnostics without matplotlib: "
+                                 f"{rec['plot_refusal']}")
     emit(rec)
     check_launches("evaluate_ens", launches, expected)
     check_launches("evaluate_ens, the fp32 dense kernel", f32_launches,
                    expected["dense_conv"] if device == "cuda" else 0)
     if (len(inits) != 2 or not all(rec["finite"].values())
             or rec["shapes"]["rank_hist.npy"] != [2, 84, leads, 21]
-            or verdict["num_scored"] == 0):
+            or verdict["num_scored"] == 0
+            or (plots and not rec["plots"]["diagnostics"]["ok"])):
         raise AssertionError(f"evaluate_ens: {rec}")
     summary["evaluate_ens"] = rec
 
-    # 4. cyclone tracks through the decoded forecast
+    # 4. cyclone tracks through the decoded forecast, against an observed
+    # track (an IBTrACS CSV of a storm moving north-west from the first fix)
+    ibtracs = os.path.join(tmp, "ibtracs.csv")
+    with open(ibtracs, "w") as f:
+        f.write("SID,ISO_TIME,LAT,LON\n ,,degrees_north,degrees_east\n")
+        for i in range(5):
+            f.write(f"S1,2018-01-01 {6 * i:02d}:00:00,{15.0 + 1.5 * i},"
+                    f"{285.0 - 1.5 * i - 360}\n")
+    map_png, err_png = (os.path.join(tmp, f"track_{k}.png") for k in ("map", "errors"))
     t0 = time.perf_counter()
     tracks = track.run(track.build_parser().parse_args(
         ["--forecast", os.path.join(forecast["edm"]["out_dir"], "fields_2018010100.npz"),
          "--lat0", "15.0", "--lon0", "285.0", "--n_steps", "4", "--output_csv",
-         os.path.join(tmp, "tracks.csv")]))
+         os.path.join(tmp, "tracks.csv"), "--ibtracs", ibtracs, "--storm_id", "S1",
+         *(["--plot", map_png, "--plot_errors", err_png] if plots else [])]))
     rec = {"phase": "chain_track", "seconds": time.perf_counter() - t0,
-           "members": len(tracks), "fixes": sorted({len(t) for t in tracks.values()})}
+           "members": len(tracks), "fixes": sorted({len(t) for t in tracks.values()}),
+           "plots": ({"map": png_check(map_png, (1400, 2000)),
+                      "errors": png_check(err_png, (600, 1050))}
+                     if plots else "matplotlib absent")}
     emit(rec)
-    if rec["members"] != 20 or rec["fixes"] != [5]:
+    if (rec["members"] != 20 or rec["fixes"] != [5]
+            or (plots and not all(v["ok"] for v in rec["plots"].values()))):
         raise AssertionError(f"track: {rec}")
 
     # 5. the 375M trainer with validation rollouts every CHAIN_AR_VAL_EVERY
@@ -2301,7 +2306,7 @@ def chain_phase(tmp, forecast, device="cuda"):
     ar_dir = os.path.join(tmp, "ar_run")
     _reset_launches(fa)
     t0 = time.perf_counter()
-    res = train_ar.run(LADCAST_375M_YAML, train_ar.build_parser().parse_args(
+    res = train_ar.run(shipped_yaml("ladcast_375m"), train_ar.build_parser().parse_args(
         ["--latents", latents, "--num_steps", str(CHAIN_AR_STEPS), "--output_dir", ar_dir,
          "--log_every", "1", "--seed", "0", "--val_every", str(CHAIN_AR_VAL_EVERY),
          "--val_latents", latents,
@@ -2337,6 +2342,334 @@ def chain_phase(tmp, forecast, device="cuda"):
     shutil.rmtree(ar_dir)
     torch.cuda.empty_cache()
     return summary
+
+
+# The tooling phase: the forecast CLI under the profiler, the compile report
+# of one DiT call, and the scaled-up DCAE of configs/dcae_ray_1024.yaml.
+TRACE_KERNELS = {"fused_attention": "fa_bf16_wgmma_kernel", "norm_rope": "norm_rope_kernel",
+                 "dense_conv": "conv_bf16_wgmma_kernel", "depthwise_conv": "dw_rows_kernel"}
+TRACE_GAPS = 5  # the longest idle gaps of the device that the record lists
+TRACE_LABELS = ("pred_rollout.", "tooling.")  # record_function labels
+RAY_SEED = 41
+
+
+def merged_spans(events):
+    """The union of the events' (start, end) intervals, sorted, in us."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    out = [list(spans[0])]
+    for s0, e0 in spans[1:]:
+        if s0 > out[-1][1]:
+            out.append([s0, e0])
+        else:
+            out[-1][1] = max(out[-1][1], e0)
+    return out
+
+
+def trace_summary(prof, label):
+    """Busy and idle shares, kernel time by category and the longest idle
+    gaps of the device over the run labelled ``label`` in a
+    ``device_trace``, with the host's stage labels and ops during each gap;
+    the launches of the port's kernels by name."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    run = next(e for e in events if e.name == label and e.device_type == DeviceType.CPU)
+    t_start_us, wall_s = run.time_range.start, (run.time_range.end - run.time_range.start) / 1e6
+    # the device's work: kernels, copies and sets, not the spans that the
+    # profiler draws on the device's timeline for record_function labels
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and not e.name.startswith(TRACE_LABELS)]
+    host = [e for e in events if e.device_type == DeviceType.CPU and e.name != label]
+    if not device:
+        return {"device_events": 0, "wall_s": wall_s}
+    spans = merged_spans(device)
+    busy_us = sum(e - s for s, e in spans)
+    by_cat = {}
+    for e in device:
+        cat = category(e.name)
+        by_cat[cat] = by_cat.get(cat, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    gaps = sorted(((spans[i + 1][0] - spans[i][1], spans[i][1], spans[i + 1][0])
+                   for i in range(len(spans) - 1)), reverse=True)[:TRACE_GAPS]
+    # the run's lead-in and tail on the host, outside any device work
+    gaps += [(spans[0][0] - t_start_us, t_start_us, spans[0][0]),
+             (t_start_us + wall_s * 1e6 - spans[-1][1], spans[-1][1],
+              t_start_us + wall_s * 1e6)]
+    listed = []
+    for length, g0, g1 in gaps:
+        overlap = {}
+        for e in host:
+            o = min(e.time_range.end, g1) - max(e.time_range.start, g0)
+            if o > 0:
+                overlap[e.name] = overlap.get(e.name, 0.0) + o / 1e3
+        labels = {k: v for k, v in overlap.items() if k.startswith(TRACE_LABELS)}
+        ops = sorted(((k, v) for k, v in overlap.items() if k not in labels),
+                     key=lambda kv: -kv[1])[:4]
+        listed.append({"ms": length / 1e3, "at_s": (g0 - t_start_us) / 1e6,
+                       "stages": labels, "host_ops_ms": dict(ops)})
+    by_name = {}
+    for e in device:
+        n, d = by_name.get(e.name[:80], (0, 0.0))
+        by_name[e.name[:80]] = (n + 1, d + (e.time_range.end - e.time_range.start) / 1e3)
+    longest = max(device, key=lambda e: e.time_range.end - e.time_range.start)
+    return {"device_events": len(device), "wall_s": wall_s,
+            "top_device_events_ms": {k: {"count": n, "ms": d} for k, (n, d) in sorted(
+                by_name.items(), key=lambda kv: -kv[1][1])[:10]},
+            "longest_device_event": {"name": longest.name[:80], "ms": (
+                longest.time_range.end - longest.time_range.start) / 1e3},
+            "device_busy_s": busy_us / 1e6, "busy_share": busy_us / 1e6 / wall_s,
+            "idle_share": 1 - busy_us / 1e6 / wall_s,
+            "device_span_s": (spans[-1][1] - spans[0][0]) / 1e6,
+            "top_categories_ms": dict(sorted(by_cat.items(), key=lambda kv: -kv[1])[:5]),
+            "longest_gaps": listed[:TRACE_GAPS], "lead_in": listed[-2],
+            "tail": listed[-1],
+            "launches": {k: sum(frag in e.name for e in device)
+                         for k, frag in TRACE_KERNELS.items()}}
+
+
+def ray_conv_cases(shapes, peaks):
+    """K4 and K5 at each distinct shape of the ray DCAE (bf16, B=1,
+    circular, as the sphere convs run them) against their plain versions,
+    timed beside cuDNN's ``F.conv2d`` on the channels-last views (the wrap
+    columns concatenated outside the timed call), with the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from ladcast_torch.ops import dense_conv as dc
+    from ladcast_torch.ops import depthwise_conv as dw
+
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    peak_bf16, peak_f32, bw, _ = peaks
+    g = torch.Generator(device=dev).manual_seed(RAY_SEED + 2)
+    out = []
+    for kname, cases in shapes.items():
+        for (B, H, W, cin), cout, k in sorted(cases):
+            p = k // 2
+            pads = ((p, p), (p, p))
+            x = torch.randn((B, H, W, cin), generator=g, device=dev).to(dt)
+            xw = torch.cat([x[:, :, W - p:], x, x[:, :, :p]], dim=2).permute(0, 3, 1, 2)
+            if kname == "dense_conv":
+                w = (torch.randn((k, k, cin, cout), generator=g, device=dev)
+                     * (k * k * cin) ** -0.5).to(dt)
+                wk = dc.pack_dense_weight(w)
+                w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+                run = lambda: dc.dense_conv_forward(x, wk, pads, True)  # noqa: E731
+                ref = dc.dense_conv_plain(x, w, pads, True)
+                lib = lambda: F.conv2d(xw, w_oihw, padding=(p, 0))  # noqa: E731
+                flops = 2 * k * k * cin * cout * B * H * W
+                nbytes = (x.numel() + w.numel() + B * H * W * cout) * 2
+                b = bound(flops, nbytes, peak_bf16, bw)
+            else:
+                kk = (torch.randn((k, k, cin), generator=g, device=dev) / k).to(dt)
+                w_oihw = kk.permute(2, 0, 1)[:, None].contiguous()
+                run = lambda: dw.depthwise_same_conv_forward(x, kk, pads, True)  # noqa: E731
+                ref = dw.depthwise_same_conv_plain(x, kk, pads, True)
+                lib = lambda: F.conv2d(xw, w_oihw, padding=(p, 0), groups=cin)  # noqa: E731
+                flops = 2 * k * k * cin * B * H * W
+                nbytes = (2 * x.numel() + kk.numel()) * 2
+                b = bound(flops, nbytes, peak_f32, bw)
+            got = run()
+            rec = {"kernel": kname, "case": f"{H}x{W}x{cin}->{cout} k{k}", "B": B,
+                   **compare(got, ref, kernel_tolerance(kname, "bfloat16", ref)),
+                   "ms": time_ms(run, rounds=10, inner=2),
+                   "library_ms": time_ms(lib, rounds=10, inner=2), **b}
+            rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+            out.append(rec)
+            if not rec["ok"]:
+                raise AssertionError(f"the ray DCAE's {kname} at {rec}")
+            del x, xw, got, ref
+    return out
+
+
+def tooling_phase(tmp, forecast, device="cuda", dit_cfg=None, ray_cfg=None,
+                  batch=20, ray_shape=(120, 240), peaks=None):
+    """1. ``cli.pred_rollout`` as the forecast phase's Heun run without the
+    decode (20 members, Heun-20, 24 h), inside ``utils.profiling.
+    device_trace``: the trace's launches of K1, K2, K4 and K5 by their
+    ``__global__`` names against the launch counters and the forecast
+    phase's counts, the device's busy and idle shares, the five largest
+    kernel categories and the longest idle gaps with the host's stages and
+    ops in each. 2. ``utils.profiling.compile_report`` over one 375M DiT
+    call at B=``batch`` (bf16). 3. The DCAE of configs/dcae_ray_1024.yaml
+    (read by ``load_yaml``) at full width on seeded weights, in bf16: one
+    encode of seeded (1, 120, 240, 84) fields with 6 seeded static channels
+    and one decode of a seeded (1, 15, 30, 1024) latent under ``CONV_MODE = "kernel"`` and ``"library"``: their
+    relative L2 (``DCAE_TOL``), the launches of K4 and K5 per encode and
+    decode, each kernel's distinct shapes, ms and peak memory per mode.
+    ``device="cpu"`` (with small ``dit_cfg``, ``ray_cfg`` and
+    ``ray_shape``) rehearses it on the CPU, where no kernel launches."""
+    import numpy as np
+    import torch
+
+    from ladcast_torch.cli import pred_rollout
+    from ladcast_torch.config import DCAEConfig, config_from_dict, ladcast_375m_config
+    from ladcast_torch.models.dcae import SphereConv, build_dcae
+    from ladcast_torch.models.ladcast_dit import build_dit
+    from ladcast_torch.ops import flash_attention as fa
+    from ladcast_torch.utils import profiling
+
+    cuda = device == "cuda"
+    dev = torch.device(device)
+    results = {}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+        return time.perf_counter()
+
+    # 1. the forecast CLI under the profiler
+    edm, dpm = forecast["edm"], forecast["dpm"]
+    out, trace_dir = os.path.join(tmp, "out_traced"), os.path.join(tmp, "trace")
+    args = pred_rollout.build_parser().parse_args(
+        [*[a for a in edm["argv"] if a != "--decode"], "--output_dir", out])
+    # K1 and K2 as the Heun run's, K4 and K5 one encode (the DPM run's per
+    # init time: it does not decode)
+    expected = {"norm_rope": edm["expected_launches"]["norm_rope"],
+                "fused_attention": edm["expected_launches"]["fused_attention"],
+                **{k: dpm["expected_launches"][k] // len(dpm["init_times"])
+                   for k in ("dense_conv", "depthwise_conv")}}
+    _reset_launches(fa)
+    _reset_conv_launches()
+    t0 = time.perf_counter()
+    with profiling.device_trace(trace_dir) as prof:
+        with torch.profiler.record_function("tooling.pred_rollout"):
+            t_run = time.perf_counter()
+            recs = pred_rollout.run(args)
+            wall_s = sync() - t_run
+    export_s = time.perf_counter() - t0 - wall_s
+    launches = {"norm_rope": fa.norm_rope.launches,
+                "fused_attention": fa.fused_attention.launches, **_conv_launches()}
+    trace_file = os.path.join(trace_dir, "trace.json")
+    summary = trace_summary(prof, "tooling.pred_rollout")
+    with open(trace_file) as f:
+        trace = json.load(f)
+    in_file = {k: sum(frag in str(ev.get("name", "")) for ev in trace["traceEvents"]
+                      if ev.get("cat") == "kernel")
+               for k, frag in TRACE_KERNELS.items()}
+    del trace
+    inits = [r for r in recs if "rollout_s" in r]
+    rec = {"phase": "tooling_trace", "card": nvidia_smi_line() if cuda else None,
+           "argv": "pred_rollout, the Heun run without --decode",
+           "members": 20, "init_times": [r["init_time"] for r in inits],
+           "load_s": recs[0]["load_s"], "encode_s": [r["encode_s"] for r in inits],
+           "rollout_s": [r["rollout_s"] for r in inits], "run_wall_host_s": wall_s,
+           "export_s": export_s, "trace_mb": os.path.getsize(trace_file) / 2**20,
+           "launches": launches, "expected_launches": expected,
+           "trace_file_launches": in_file, **summary}
+    del prof
+    emit(rec)
+    if cuda:
+        check_launches("the traced forecast", launches, expected)
+        if summary["launches"] != expected or in_file != expected:
+            raise AssertionError(f"the trace's launches: {rec}")
+    results["trace"] = rec
+    shutil.rmtree(trace_dir)
+
+    # 2. the compile report of one 375M DiT call
+    cfg = dit_cfg or ladcast_375m_config()
+    dit = build_dit(cfg, dev, torch.bfloat16 if cuda else torch.float32, seed=43)
+    g = torch.Generator(device=dev).manual_seed(44)
+    dt = next(dit.parameters()).dtype
+    lat = torch.randn(batch, 4, 15, 30, cfg.in_channels, generator=g, device=dev).to(dt)
+    cond = torch.randn(batch, 1, 15, 30, cfg.in_channels, generator=g, device=dev).to(dt)
+    cn, yp = (torch.rand(batch, generator=g, device=dev) for _ in range(2))
+
+    def call():
+        with torch.inference_mode():
+            return dit(lat, cn, cond, yp)
+
+    report = profiling.compile_report(call)
+    rec = {"phase": "tooling_compile_report", "B": batch, "dtype": str(dt),
+           "kernels_built_before": cuda, **report,
+           "expected_uncounted": {"norm_rope": 7, "fused_attention": 7} if cuda else {}}
+    emit(rec)
+    if (set(report) != {"first_call_s", "steady_s", "flops", "flops_complete", "uncounted"}
+            or report["uncounted"] != rec["expected_uncounted"] or report["flops"] <= 0):
+        raise AssertionError(f"compile_report: {rec}")
+    results["compile_report"] = rec
+    del dit, lat, cond
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # 3. the dcae_ray_1024 DCAE at full width, both conv modes
+    rcfg = ray_cfg or config_from_dict(DCAEConfig, shipped_yaml("dcae_ray_1024")["encdec"])
+    dt = torch.bfloat16
+    dcae = build_dcae(rcfg, dev, dt, seed=RAY_SEED)
+    g = torch.Generator(device=dev).manual_seed(RAY_SEED + 1)
+    H, W = ray_shape
+    n_static = rcfg.static_channels
+    fields = torch.randn(1, H, W, rcfg.in_channels - n_static, generator=g, device=dev).to(dt)
+    static = torch.randn(H, W, n_static, generator=g, device=dev).to(dt)
+    r = rcfg.spatial_compression_ratio
+    z = torch.randn(1, H // r, W // r, rcfg.latent_channels, generator=g, device=dev).to(dt)
+    shapes = {"dense_conv": set(), "depthwise_conv": set()}
+
+    def hook(mod, inp):
+        x = inp[0]
+        kind = "dense_conv" if mod.groups == 1 else "depthwise_conv"
+        shapes[kind].add((tuple(x.shape), mod.out_channels, mod.kernel_size[0]))
+
+    hooks = [m.register_forward_pre_hook(hook) for m in dcae.modules()
+             if isinstance(m, SphereConv)]
+    outs, ms, peak, counts = {}, {}, {}, {}
+    with torch.inference_mode():
+        for mode in ("kernel", "library"):
+            with conv_mode(mode):
+                dcae.encode(fields, static)  # warm-up: packing, library handles
+                dcae.decode(z)
+                if cuda:
+                    torch.cuda.reset_peak_memory_stats()
+                for stage in ("encode", "decode"):
+                    _reset_conv_launches()
+                    t0 = sync()
+                    y = dcae.encode(fields, static) if stage == "encode" else dcae.decode(z)
+                    ms[mode, stage] = (sync() - t0) * 1e3
+                    outs[mode, stage] = y.float()
+                    counts[mode, stage] = _conv_launches()
+                peak[mode] = torch.cuda.max_memory_allocated() / 2**30 if cuda else None
+            if mode == "kernel":
+                for h in hooks:
+                    h.remove()
+    rec = {"phase": "tooling_dcae_ray_1024", "B": 1, "dtype": "bfloat16",
+           "grid": [H, W], "parameters": sum(p.numel() for p in dcae.parameters()),
+           "tol": DCAE_TOL["bfloat16"],
+           "expected_launches": {"encode": sphere_conv_counts(dcae.encoder),
+                                 "decode": sphere_conv_counts(dcae.decoder)},
+           "shapes": {k: sorted([list(s[0]), s[1], s[2]] for s in v)
+                      for k, v in shapes.items()},
+           "peak_mem_gb": peak}
+    # where the kernel mode's time goes: one encode and decode traced
+    with torch.inference_mode(), conv_mode("kernel"), \
+            profiling.device_trace(os.path.join(tmp, "ray_trace")) as prof:
+        with torch.profiler.record_function("tooling.dcae_ray_1024"):
+            dcae.decode(dcae.encode(fields, static))
+            sync()
+    traced = trace_summary(prof, "tooling.dcae_ray_1024")
+    rec["kernel_mode_trace"] = {k: traced.get(k) for k in (
+        "wall_s", "device_busy_s", "busy_share", "top_categories_ms", "launches")}
+    del prof
+    shutil.rmtree(os.path.join(tmp, "ray_trace"))
+    if cuda and peaks:
+        rec["conv_cases"] = ray_conv_cases(shapes, peaks)
+    ok = True
+    for stage in ("encode", "decode"):
+        a, b = outs["kernel", stage], outs["library", stage]
+        rec[stage] = {"rel_l2": ((a - b).norm() / b.norm()).item(),
+                      "finite": bool(torch.isfinite(a).all()),
+                      "shape": list(a.shape),
+                      "ms": {m: ms[m, stage] for m in ("kernel", "library")},
+                      "launches": counts["kernel", stage],
+                      "library_launches": counts["library", stage]}
+        ok &= (rec[stage]["finite"] and rec[stage]["rel_l2"] <= DCAE_TOL["bfloat16"]
+               and not any(counts["library", stage].values())
+               and (not cuda or counts["kernel", stage] == rec["expected_launches"][stage]))
+    emit(rec)
+    if not ok:
+        raise AssertionError(f"the dcae_ray_1024 DCAE: {rec}")
+    results["dcae_ray_1024"] = rec
+    del dcae, outs
+    if cuda:
+        torch.cuda.empty_cache()
+    return results
 
 
 # The data-sources phase: DCAE training steps on the chain's frames read
@@ -2445,8 +2778,7 @@ class _Warnings:
         self.logger.removeHandler(self.handler)
 
 
-def data_sources_phase(tmp, dcae_yaml=DCAE_84_YAML, ar_yaml=LADCAST_375M_YAML,
-                       device="cuda"):
+def data_sources_phase(tmp, dcae_yaml=None, ar_yaml=None, device="cuda"):
     """The chain's raw frames written as monthly tars in the archive's
     layout and the training phases' latents cut into shards: the frames
     read back through the C++ reader and through tarfile against the
@@ -2454,12 +2786,16 @@ def data_sources_phase(tmp, dcae_yaml=DCAE_84_YAML, ar_yaml=LADCAST_375M_YAML,
     validation split from the same archive) and ``train_ar`` from the shard
     directory under ``--reader native`` and ``mmap``, each against the
     same run on the ``.npz``: losses, gradient norms and validation losses
-    must be equal."""
+    must be equal. The yamls default to the shipped dcae_84 and
+    ladcast_375m."""
     import numpy as np
     import torch
 
     from ladcast_torch.cli import train_ar, train_dcae
     from ladcast_torch.data import era5_tar, native_reader
+
+    dcae_yaml = dcae_yaml or shipped_yaml("dcae_84")
+    ar_yaml = ar_yaml or shipped_yaml("ladcast_375m")
     from ladcast_torch.data.latent_dataset import ShardedLatentSource
     from ladcast_torch.ops import flash_attention as fa
 
@@ -2868,8 +3204,7 @@ def _step_rel_diff(got, want):
 
 
 def parallel_phase(tmp, latents, training, dit_1p6b, forecast, chain,
-                   ar_yaml=LADCAST_375M_YAML, p16_yaml=LADCAST_1P6B_YAML,
-                   dcae_yaml=DCAE_84_YAML, ar_steps=TRAIN_STEPS,
+                   ar_yaml=None, p16_yaml=None, dcae_yaml=None, ar_steps=TRAIN_STEPS,
                    p16_steps=TRAIN_STEPS_1P6B, dcae_steps=CHAIN_DCAE_STEPS,
                    device="cuda"):
     """``ladcast_torch.parallel`` on the card, through the CLIs' ``run``.
@@ -2891,10 +3226,15 @@ def parallel_phase(tmp, latents, training, dit_1p6b, forecast, chain,
        forecast phase's two DPM files, one init time per rank, its merged
        tables held to a one-process run's. Wall time and each rank's peak
        memory.
-    With ``device="cpu"`` (and small yamls and step counts) the phase
-    rehearses on the CPU, its group on gloo."""
+    The yamls default to the shipped ladcast_375m, ladcast_1p6b and
+    dcae_84. With ``device="cpu"`` (and small yamls and step counts) the
+    phase rehearses on the CPU, its group on gloo."""
     import numpy as np
     import torch
+
+    ar_yaml = ar_yaml or shipped_yaml("ladcast_375m")
+    p16_yaml = p16_yaml or shipped_yaml("ladcast_1p6b")
+    dcae_yaml = dcae_yaml or shipped_yaml("dcae_84")
 
     from ladcast_torch.cli import evaluate_ens, train_ar, train_dcae
     from ladcast_torch.ops import flash_attention as fa
@@ -3341,6 +3681,9 @@ def main():
         int8 = int8_forecast_phase(tmp, forecast, peaks, int8_peak)
         emit({"phase": "int8_forecast_done", "wall_s": time.perf_counter() - t0})
         t0 = time.perf_counter()
+        tooling = tooling_phase(tmp, forecast, peaks=peaks)
+        emit({"phase": "tooling_done", "wall_s": time.perf_counter() - t0})
+        t0 = time.perf_counter()
         data = data_sources_phase(tmp)
         emit({"phase": "data_sources_done", "wall_s": time.perf_counter() - t0})
         t0 = time.perf_counter()
@@ -3411,6 +3754,10 @@ def main():
         e["int8_forecast_launches"] = int8["forecast"]["launches"][kname]
         e["data_sources_train_ar_launches"] = data["train_ar"]["launches"][kname]
         e["parallel_launches"] = parallel_launches(kname)
+        # the profiled forecast (no decode) and one DiT call's compile report
+        e["tooling_launches"] = {
+            "traced_forecast": tooling["trace"]["launches"][kname],
+            "compile_report_dit_call": tooling["compile_report"]["uncounted"][kname]}
         summary.append(e)
     e = entry("fused_attention_lse", results["fused_attention_lse"],
               train_launches["fused_attention_lse"])
@@ -3472,6 +3819,14 @@ def main():
                                    for stage in ("encode", "decode")}
         e["int8_forecast_launches"] = int8["forecast"]["launches"][kname]
         e["parallel_launches"] = parallel_launches(kname)
+        # the profiled forecast's encode; the dcae_ray_1024 DCAE's encode and
+        # decode (bf16, B=1) at its own shapes
+        ray = tooling["dcae_ray_1024"]
+        e["tooling_launches"] = {
+            "traced_forecast": tooling["trace"]["launches"][kname],
+            "dcae_ray_1024": {stage: ray[stage]["launches"][kname]
+                              for stage in ("encode", "decode")}}
+        e["dcae_ray_1024_shapes"] = ray["shapes"][kname]
         if kname == "depthwise_conv":  # one kernel for both dtypes
             sc = next(r for r in scoring[kname]
                       if r["case"] == KERNEL_LINE_CASES[kname][0])

@@ -10,7 +10,9 @@ static conditioning, ``--batch_size`` frames per call, on the device (CUDA
 unless ``--device cpu`` is given) in ``--compute_dtype`` (bf16 by default:
 no gradient is taken, so the convs read their packed weights). Writes an
 ``.npz`` with ``latents`` (time, 15, 30, 84) float32 in physical latent
-scale and ``timestamps``: what ``cli.train_ar --latents`` reads.
+scale and ``timestamps``, or with any other ``--output`` a zarr store in
+the reference layout, ``latents`` (time, C, H, W) with datetime ``time``
+coordinates (xarray and pandas): what ``cli.train_ar --latents`` reads.
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--data", required=True,
                     help="ERA5 .npz bundle or directory of monthly tars")
     ap.add_argument("--dcae_params", required=True)
-    ap.add_argument("--output", required=True, help=".npz path")
+    ap.add_argument("--output", required=True,
+                    help=".npz path, or else a zarr store to write")
     ap.add_argument("--batch_size", type=int, default=32)
     ap.add_argument("--start_date", default=None,
                     help="YYYY-MM-DD[Thh]: encode only timestamps >= this")
@@ -48,10 +51,9 @@ def run(args: argparse.Namespace) -> dict:
     """Encode what ``args`` (:func:`build_parser`) selects; returns
     {"latents", "timestamps", "encode_s"} (seconds of the encode calls,
     each ending in a synchronise)."""
-    if not args.output.endswith(".npz"):
-        raise NotImplementedError(
-            f"--output {args.output}: only .npz outputs are ported; zarr "
-            f"waits for ROADMAP.md Queue 1 item M13 (part c, xarray)")
+    if not args.output.endswith(".npz"):  # a zarr output: fail before encoding
+        import pandas  # noqa: F401
+        import xarray  # noqa: F401
     device = resolve_device(args.device)
     from ladcast_torch.cli.pred_rollout import _load_any_params, open_field_source
 
@@ -97,7 +99,19 @@ def run(args: argparse.Namespace) -> dict:
         lats.append(z.cpu().numpy())
         print(f"encoded {min(s + args.batch_size, n)}/{n}", flush=True)
     latents = np.concatenate(lats)  # (time, 15, 30, 84)
-    np.savez(args.output, latents=latents, timestamps=timestamps)
+    if args.output.endswith(".npz"):
+        np.savez(args.output, latents=latents, timestamps=timestamps)
+    else:
+        import pandas as pd
+        import xarray as xr
+
+        da = xr.DataArray(
+            np.moveaxis(latents, -1, 1),  # the reference layout (time, C, H, W)
+            dims=("time", "C", "H", "W"),
+            coords={"time": pd.to_datetime([str(t) for t in timestamps],
+                                           format="%Y%m%d%H")},
+            name="latents")
+        da.to_dataset().to_zarr(args.output, mode="w")
     print(f"wrote {args.output}: {latents.shape}")
     return {"latents": latents, "timestamps": timestamps, "encode_s": encode_s}
 

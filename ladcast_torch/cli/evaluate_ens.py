@@ -3,7 +3,8 @@ lat-weighted ensemble-mean RMSE, CRPS and ACC per (channel, lead time).
 
     python -m ladcast_torch.cli.evaluate_ens --latent_dir out \\
         --truth era5.npz --climatology clim.npz --dcae_params <hub dir> \\
-        --output_dir scores [--diagnostics] [--device cpu]
+        --output_dir scores [--diagnostics [--plot_diagnostics diag.png]] \\
+        [--device cpu]
 
 Reads the per-init-time ``latent_<ts>.npy`` files of ``cli.pred_rollout``
 ((ens, C, T+1, h, w), physical latent scale), decodes the members on the
@@ -19,7 +20,11 @@ them and scores. SST (channel 82) takes nan-aware means over the ocean
 (truth NaNs over land).
 
 Truth: an ``.npz`` bundle (``fields`` (time, lat, lon, 84) raw,
-``timestamps``) or a directory of monthly tars (``data.era5_tar``). Climatology: ``clim.npz`` of ``cli.compute_climatology``.
+``timestamps``), a directory of monthly tars (``data.era5_tar``) or an
+ERA5 zarr (xarray). Climatology: ``clim.npz`` of ``cli.compute_climatology``
+or ``cli.convert_wb2_climatology``. ``--plot_diagnostics`` draws the
+diagnostics (``utils.visualization.plot_ens_diagnostics``); it needs
+matplotlib, which is checked before anything is loaded.
 """
 
 from __future__ import annotations
@@ -231,16 +236,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--shard_ensemble", action="store_true",
                     help="split each init time's member decode over the "
                          "ranks, rather than the init times")
-    # a flag of the JAX CLI whose module is not ported yet
-    ap.add_argument("--plot_diagnostics", default=None, metavar="PNG")
+    ap.add_argument("--plot_diagnostics", default=None, metavar="PNG",
+                    help="with --diagnostics: write the calibration panel "
+                         "(RMSE vs spread, rank histograms, spectra) to PNG")
     return ap
-
-
-_NOT_PORTED = [
-    (lambda a: a.plot_diagnostics,
-     "--plot_diagnostics: utils/visualization.py waits for ROADMAP.md "
-     "Queue 1 item M13 (part c, visualization)"),
-]
 
 
 def _headline_summary(merged, step_size_hour, diagnostics):
@@ -287,9 +286,11 @@ def run(args: argparse.Namespace) -> dict:
         raise SystemExit("--climatology is required for ACC (or pass "
                          "--allow_truth_mean_climatology for an indicative "
                          "truth-window-mean substitute)")
-    for unsupported, msg in _NOT_PORTED:
-        if unsupported(args):
-            raise NotImplementedError(msg)
+    plot = bool(args.plot_diagnostics and args.diagnostics)
+    if plot:
+        from ladcast_torch.utils.visualization import require_matplotlib
+
+        require_matplotlib("--plot_diagnostics")
     dist.initialize(device=args.device)
     device = dist.local_device(resolve_device(args.device))
     rank = dist.process_index()
@@ -369,6 +370,11 @@ def run(args: argparse.Namespace) -> dict:
     summary = _headline_summary(merged, args.step_size_hour, args.diagnostics)
     with open(os.path.join(args.output_dir, "summary.json"), "w") as f:
         json.dump(summary, f, indent=2)
+    if plot:
+        from ladcast_torch.utils.visualization import plot_ens_diagnostics
+
+        plot_ens_diagnostics(args.output_dir, args.plot_diagnostics,
+                             step_size_hour=args.step_size_hour)
     print(json.dumps({"num_init_times": int(merged["crps"].shape[0]),
                       "saved": args.output_dir, "summary": summary}))
     return {"summary": summary, "num_init_times": int(merged["crps"].shape[0]),

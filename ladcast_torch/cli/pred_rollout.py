@@ -14,9 +14,9 @@ encoded analysis), and with ``--decode`` ``fields_<ts>.npz``, the decoded
 fields in physical units with their coordinates.
 
 ERA5 input: an ``.npz`` bundle with ``fields`` (time, lat, lon, 84), raw,
-and ``timestamps`` (YYYYMMDDHH ints), or a directory of monthly tars
+and ``timestamps`` (YYYYMMDDHH ints), a directory of monthly tars
 (``YYYY_MM.tar`` of hourly (85, 121, 240) ``.npy`` members,
-``data.era5_tar``). ``--int8_matmuls`` runs the DiT's transformer-block
+``data.era5_tar``), or an ERA5 zarr in the reference layout (xarray). ``--int8_matmuls`` runs the DiT's transformer-block
 matmuls as dynamic w8a8 int8 products (``ops.quant``): an opt-in
 approximation of the exact forecast.
 
@@ -40,8 +40,9 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
-from ladcast_torch import resolve_device, static_data
+from ladcast_torch import channels as ch, resolve_device, static_data
 from ladcast_torch.config import (
     DCAEConfig,
     EDMSchedulerConfig,
@@ -70,22 +71,67 @@ class NpzFieldSource:
         return self.fields[idx]
 
 
+class ZarrFieldSource:
+    """The reference's ERA5 zarr (requires xarray and pandas), the south
+    pole row cropped at read."""
+
+    def __init__(self, path: str):
+        import pandas as pd
+        import xarray as xr
+
+        ds = xr.open_zarr(path)
+        self.ds = ds.sel(latitude=slice(ch.LAT_START_DEG, ch.LAT_END_DEG))
+        self._pd = pd
+
+    def frames_at(self, ts_ints):
+        """(T, lat, lon, 84) float32 raw fields at the YYYYMMDDHH ints: one
+        batched selection per call, which reads each chunk once (a
+        selection per time and variable would make T x 12 round trips to
+        the store)."""
+        times = np.asarray([np.datetime64(time_utils.int_to_datetime(int(t)))
+                            for t in ts_ints])
+        sel = self.ds.sel(time=times)
+        stack = []
+        for var in ch.ATM_VARIABLES:
+            stack.append(sel[var].sel(level=list(ch.PRESSURE_LEVELS)).transpose(
+                "time", "level", "latitude", "longitude").values)
+        for var in ch.SURFACE_VARIABLES:
+            stack.append(sel[var].transpose(
+                "time", "latitude", "longitude").values[:, None])
+        return np.moveaxis(np.concatenate(stack, 1), 1, -1).astype(np.float32)
+
+
+def _is_zarr(path: str) -> bool:
+    """Whether :func:`open_field_source` reads ``path`` as a zarr store:
+    anything that is neither an ``.npz`` nor a directory of tars (a
+    directory named ``*.zarr`` or holding zarr metadata is a store)."""
+    if path.endswith(".npz"):
+        return False
+    if os.path.isdir(path):
+        return path.rstrip("/").endswith(".zarr") or any(
+            os.path.exists(os.path.join(path, f))
+            for f in (".zgroup", ".zmetadata", "zarr.json"))
+    return True
+
+
 def open_field_source(path: str, split: str = None):
     """(source, timestamps int64) of an ERA5 field source: an ``.npz``
-    bundle, or a directory of monthly tars (``data.era5_tar``; its
-    timestamps in archive order). ``split`` keeps a named split's years
-    (train 1979-2017, validation 2018, test 2022, full, or a year)."""
-    if os.path.isdir(path):
+    bundle, a directory of monthly tars (``data.era5_tar``; its timestamps
+    in archive order), or a zarr store (:class:`ZarrFieldSource`).
+    ``split`` keeps a named split's years (train 1979-2017, validation
+    2018, test 2022, full, or a year)."""
+    if _is_zarr(path):
+        src = ZarrFieldSource(path)
+        ts = np.asarray([int(t.strftime("%Y%m%d%H")) for t in
+                         src._pd.to_datetime(src.ds.time.values)], np.int64)
+    elif os.path.isdir(path):
         from ladcast_torch.data import era5_tar
 
         return (era5_tar.TarFieldSource(path),
                 era5_tar.available_timestamps(path, split or "full"))
-    if not path.endswith(".npz"):
-        raise NotImplementedError(
-            f"{path}: .npz bundles and tar directories are ported; zarr "
-            f"stores wait for ROADMAP.md Queue 1 item M13 (part c, xarray)")
-    src = NpzFieldSource(path)
-    ts = np.asarray(src.timestamps, np.int64)
+    else:
+        src = NpzFieldSource(path)
+        ts = np.asarray(src.timestamps, np.int64)
     if split:
         ts = time_utils.split_timestamps(ts, split)
     return src, ts
@@ -94,7 +140,8 @@ def open_field_source(path: str, split: str = None):
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--data", required=True,
-                    help="ERA5 .npz bundle or directory of monthly tars")
+                    help="ERA5 .npz bundle, directory of monthly tars or "
+                         "zarr store")
     ap.add_argument("--dit_params", required=True,
                     help="a diffusers model or training-checkpoint directory "
                          "(config taken from its config.json), a "
@@ -143,13 +190,6 @@ def build_parser() -> argparse.ArgumentParser:
                     help="split each init time's members over the ranks, "
                          "rather than the init times")
     return ap
-
-
-_NOT_PORTED = [
-    (lambda a: not (a.data.endswith(".npz") or os.path.isdir(a.data)),
-     "--data: .npz bundles and tar directories are ported; zarr stores wait "
-     "for ROADMAP.md Queue 1 item M13 (part c, xarray)"),
-]
 
 
 def _trainer_checkpoint_params(path: str, kind: str, cfg):
@@ -207,9 +247,8 @@ def run(args: argparse.Namespace, compute_dtype: str = "bfloat16") -> list:
     stage, or why it was skipped."""
     if (args.start_date is None) != (args.end_date is None):
         raise ValueError("--start_date and --end_date must be given together")
-    for unsupported, msg in _NOT_PORTED:
-        if unsupported(args):
-            raise NotImplementedError(msg)
+    if _is_zarr(args.data):  # fail on a missing xarray before the loads
+        import xarray  # noqa: F401
     dist.initialize(device=args.device)
     device = dist.local_device(resolve_device(args.device))
     rank0 = dist.process_index() == 0
@@ -231,19 +270,22 @@ def run(args: argparse.Namespace, compute_dtype: str = "bfloat16") -> list:
         correction_skip_period=args.correction_skip_period)
     dit_cfg = (ladcast_375m_config() if args.model == "375M"
                else ladcast_1p6b_config())
+    # the stages carry profiler labels, which a device trace
+    # (utils.profiling.device_trace) shows beside the host's ops
     t0 = time.perf_counter()
-    dit_params, dit_cfg = _load_any_params(
-        args.dit_params, "dit", dit_cfg, args.dit_subfolder)
-    dcae_params, dcae_cfg = _load_any_params(
-        args.dcae_params, "dcae", DCAEConfig(), args.dcae_subfolder)
-    if args.int8_matmuls:
-        dit_cfg = dataclasses.replace(dit_cfg, int8_matmuls=True)
-    pipe = ForecastPipeline(dit_cfg, dcae_cfg, EDMSchedulerConfig(), rcfg,
-                            dit_params, dcae_params,
-                            compute_dtype=compute_dtype,
-                            host_step=args.host_step, device=device,
-                            shard_ensemble=args.shard_ensemble)
-    del dit_params, dcae_params
+    with record_function("pred_rollout.load"):
+        dit_params, dit_cfg = _load_any_params(
+            args.dit_params, "dit", dit_cfg, args.dit_subfolder)
+        dcae_params, dcae_cfg = _load_any_params(
+            args.dcae_params, "dcae", DCAEConfig(), args.dcae_subfolder)
+        if args.int8_matmuls:
+            dit_cfg = dataclasses.replace(dit_cfg, int8_matmuls=True)
+        pipe = ForecastPipeline(dit_cfg, dcae_cfg, EDMSchedulerConfig(), rcfg,
+                                dit_params, dcae_params,
+                                compute_dtype=compute_dtype,
+                                host_step=args.host_step, device=device,
+                                shard_ensemble=args.shard_ensemble)
+        del dit_params, dcae_params
     records = [{"loaded": True, "load_s": sync() - t0}]
     print(json.dumps(records[0]), flush=True)
 
@@ -251,7 +293,8 @@ def run(args: argparse.Namespace, compute_dtype: str = "bfloat16") -> list:
     # index pass (frames_at reads any month of the archive)
     years = ({args.start_date[:4], args.end_date[:4]} if args.start_date
              else {str(args.year)})
-    one_year = len(years) == 1 and os.path.isdir(args.data)
+    one_year = (len(years) == 1 and os.path.isdir(args.data)
+                and not _is_zarr(args.data))
     source, _ = open_field_source(args.data, years.pop() if one_year else None)
     if args.start_date:
         init_times = time_utils.filter_eval_timestamps_range(
@@ -275,7 +318,8 @@ def run(args: argparse.Namespace, compute_dtype: str = "bfloat16") -> list:
         input_ts = [time_utils.add_hours_int(ts, -args.step_size_hour * i)
                     for i in range(args.input_seq_len - 1, -1, -1)]
         try:
-            raw = source.frames_at(input_ts)  # (T_in, lat, lon, 84)
+            with record_function("pred_rollout.read"):
+                raw = source.frames_at(input_ts)  # (T_in, lat, lon, 84)
         except (KeyError, ValueError, FileNotFoundError) as e:
             records.append({"init_time": ts, "skipped": str(e)[:120]})
             print(json.dumps(records[-1]), flush=True)
@@ -287,8 +331,9 @@ def run(args: argparse.Namespace, compute_dtype: str = "bfloat16") -> list:
         # (seed, init time) forecast is the same whatever other init times
         # the run holds or where it restarts.
         stats = {}
-        traj, decoded, z_phys = pipe.forecast_from_fields(
-            fields, ts, stream_seed(args.seed, ts), decode=decode, stats=stats)
+        with record_function("pred_rollout.forecast"):
+            traj, decoded, z_phys = pipe.forecast_from_fields(
+                fields, ts, stream_seed(args.seed, ts), decode=decode, stats=stats)
         if not writes:
             records.append({"init_time": ts, **stats,
                             "seconds": round(time.perf_counter() - t0, 2)})
@@ -300,13 +345,14 @@ def run(args: argparse.Namespace, compute_dtype: str = "bfloat16") -> list:
         # convention, so that these files interchange with its scorer.
         z0 = z_phys[-1][None, None].expand(rcfg.ensemble_size, 1,
                                            *z_phys.shape[1:])
-        full = torch.cat([z0, pipe.unnormalize_latent(traj)], dim=1)
-        np.save(os.path.join(args.output_dir, f"latent_{ts}.npy"),
-                full.movedim(-1, 1).cpu().numpy())
-        if decoded is not None:
-            decoded_to_npz(decoded.cpu().numpy(), ts,
-                           os.path.join(args.output_dir, f"fields_{ts}.npz"),
-                           step_size_hour=args.step_size_hour)
+        with record_function("pred_rollout.write"):
+            full = torch.cat([z0, pipe.unnormalize_latent(traj)], dim=1)
+            np.save(os.path.join(args.output_dir, f"latent_{ts}.npy"),
+                    full.movedim(-1, 1).cpu().numpy())
+            if decoded is not None:
+                decoded_to_npz(decoded.cpu().numpy(), ts,
+                               os.path.join(args.output_dir, f"fields_{ts}.npz"),
+                               step_size_hour=args.step_size_hour)
         records.append({"init_time": ts, **stats,
                         "seconds": round(time.perf_counter() - t0, 2)})
         print(json.dumps(records[-1]), flush=True)

@@ -3,12 +3,17 @@ numpy).
 
     python -m ladcast_torch.cli.track --forecast fields_<ts>.npz \\
         --lat0 15.0 --lon0 285.0 --output_csv tracks.csv \\
-        [--n_steps 12] [--ibtracs ibtracs.csv --storm_id SID]
+        [--n_steps 12] [--ibtracs ibtracs.csv --storm_id SID] \\
+        [--plot map.png] [--plot_errors errors.png]
 
 Tracks a storm's mean-sea-level-pressure minimum through every member of a
 decoded forecast (the ``fields_<ts>.npz`` of ``cli.pred_rollout --decode``)
 from a first fix, and writes one CSV row per (member, fix); with an
 IBTrACS CSV and a storm id, the great-circle error of each fix in km.
+``--plot`` draws the tracks with their ensemble mean (and the observed
+track) on a map, ``--plot_errors`` the error growth of each member (with
+the observed track only); both need matplotlib, which is checked before the
+forecast is read.
 """
 
 from __future__ import annotations
@@ -43,9 +48,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--ibtracs", default=None,
                     help="optional IBTrACS CSV for track-error columns")
     ap.add_argument("--storm_id", default=None)
-    # flags of the JAX CLI whose modules are not ported yet
-    ap.add_argument("--plot", default=None)
-    ap.add_argument("--plot_errors", default=None)
+    ap.add_argument("--plot", default=None,
+                    help="write a track-comparison map PNG")
+    ap.add_argument("--plot_errors", default=None,
+                    help="write a track-error-growth PNG (needs --ibtracs)")
     return ap
 
 
@@ -53,9 +59,9 @@ def run(args: argparse.Namespace) -> dict:
     """Track every member of ``args.forecast``; returns {member name: [(time,
     lat, lon), ...]}."""
     if args.plot or args.plot_errors:
-        raise NotImplementedError(
-            "--plot / --plot_errors: utils/visualization.py waits for "
-            "ROADMAP.md Queue 1 item M13 (part c, visualization)")
+        from ladcast_torch.utils.visualization import require_matplotlib
+
+        require_matplotlib("--plot" if args.plot else "--plot_errors")
     with np.load(args.forecast, allow_pickle=True) as d:
         fields = d["fields"]  # (E, T, lat, lon, 84)
         meta = json.loads(str(d["meta"]))
@@ -93,6 +99,23 @@ def run(args: argparse.Namespace) -> dict:
                     row.append(round(float(errs[i]), 1))
                 w.writerow(row)
     print(f"wrote {args.output_csv} ({len(tracks)} member tracks)")
+
+    if args.plot or args.plot_errors:
+        from ladcast_torch.utils import visualization as viz
+
+        if args.plot:
+            viz.plot_tracks(
+                obs_track=obs, ens_tracks=tracks,
+                ens_mean_track=viz.ensemble_mean_track(tracks),
+                title=f"{args.storm_id or 'storm'} track comparison",
+                out_path=args.plot)
+            print(f"wrote {args.plot}")
+        if args.plot_errors and obs is not None:
+            errs = {name: tracker.track_error_km(track, obs)
+                    for name, track in tracks.items()}
+            viz.plot_track_errors(errs, step_hours=step_h,
+                                  out_path=args.plot_errors)
+            print(f"wrote {args.plot_errors}")
     return tracks
 
 

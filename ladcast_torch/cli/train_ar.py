@@ -6,7 +6,9 @@
 Trains the DiT of the config's ``ar_model`` on latents (an ``.npz`` with
 ``latents`` (time, h, w, C) and ``timestamps`` (time,) YYYYMMDDHH, or a
 directory of ``.npy`` shards (time, h, w, C) in name order plus
-``timestamps.npy``, read through ``--reader``) on CUDA unless ``--device
+``timestamps.npy``, read through ``--reader``, or a latent zarr between
+the yaml's ``train_dataloader.start_date`` and ``end_date``) on CUDA
+unless ``--device
 cpu`` is given: one device, or one process per card under ``torchrun
 --nproc_per_node N`` with ``--mesh`` / ``--zero`` / the yaml's
 ``parallel:`` section (``parallel.sharding_rules``: DDP, FSDP or HSDP).
@@ -19,8 +21,9 @@ in ``<output_dir>/metrics.jsonl`` (and the yaml's ``accelerator.log_with``
 back end: tensorboard or wandb); with ``--val_every N --val_latents
 val.npz``, an ensemble validation every N steps (``train.validation``).
 
-:func:`main` parses the arguments and reads the YAML; :func:`run` trains
-from a config dict, so a caller without PyYAML can pass the dict itself.
+:func:`main` parses the arguments and reads the YAML
+(``utils.registry.load_yaml``, which needs no PyYAML); :func:`run` trains
+from a config dict.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from ladcast_torch.data.latent_dataset import (
     ArrayLatentSource,
     ShardedLatentSource,
     batch_iterator,
+    open_zarr_latent_source,
 )
 from ladcast_torch.parallel import dist
 from ladcast_torch.parallel.mesh import make_mesh_from_spec, mesh_sizes
@@ -55,12 +59,15 @@ from ladcast_torch.utils.logging_utils import MetricLogger
 from ladcast_torch.utils.profiling import PhaseTimer
 
 
-def load_latent_source(path: str, reader: str = "auto"):
-    """A latent source: an ``.npz`` in memory, or a directory of ``.npy``
+def load_latent_source(path: str, reader: str = "auto", start_date=None,
+                       end_date=None, load_in_memory: bool = True):
+    """A latent source: an ``.npz`` in memory; a directory of ``.npy``
     shards with ``timestamps.npy``, read by the C++ pread pool
     (``reader="native"``, which raises where the library cannot be built),
     by numpy mmap (``"mmap"``), or by the former where it builds and else,
-    with one printed line, the latter (``"auto"``)."""
+    with one printed line, the latter (``"auto"``); anything else, a latent
+    zarr between ``start_date`` and ``end_date`` (xarray,
+    ``data.latent_dataset.open_zarr_latent_source``)."""
     if reader not in ("auto", "native", "mmap"):
         raise ValueError(f"reader {reader!r}: expected auto, native or mmap")
     if path.endswith(".npz"):
@@ -81,10 +88,8 @@ def load_latent_source(path: str, reader: str = "auto"):
                 print(f"native reader unavailable ({e}); falling back to "
                       f"numpy mmap", flush=True)
         return ShardedLatentSource(shards, ts)
-    raise NotImplementedError(
-        f"{path}: .npz latents and shard directories (*.npy + timestamps.npy) "
-        f"are ported; zarr sources wait for ROADMAP.md Queue 1 item M13 "
-        f"(part c, xarray)")
+    return open_zarr_latent_source(path, start_date=start_date, end_date=end_date,
+                                   load_in_memory=load_in_memory)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -360,7 +365,10 @@ def run(cfg: dict, args: argparse.Namespace) -> dict:
         batch_size=dl_cfg.get("batch_size", 4))
 
     lm, ls = static_data.latent_mean_std()
-    source = load_latent_source(args.latents or dl_cfg.get("ds_path"), args.reader)
+    source = load_latent_source(
+        args.latents or dl_cfg.get("ds_path"), args.reader,
+        start_date=dl_cfg.get("start_date"), end_date=dl_cfg.get("end_date"),
+        load_in_memory=dl_cfg.get("load_in_memory", True))
     wcfg = ARWindowConfig(
         input_seq_len=dl_cfg.get("input_seq_len", 1),
         return_seq_len=dl_cfg.get("return_seq_len", 4),

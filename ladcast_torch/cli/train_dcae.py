@@ -23,8 +23,9 @@ and, with validation, ``best/step-<N>/``: the EMA weights of the 3 newest
 best validation losses, as diffusers model directories that every CLI
 loads.
 
-:func:`main` parses the arguments and reads the YAML; :func:`run` trains
-from a config dict, so a caller without PyYAML can pass the dict itself.
+:func:`main` parses the arguments and reads the YAML
+(``utils.registry.load_yaml``, which needs no PyYAML); :func:`run` trains
+from a config dict.
 """
 
 from __future__ import annotations

@@ -1,9 +1,9 @@
 """Typed configuration dataclasses of the PyTorch port.
 
 The port's own copies of ``ladcast_tpu.config``'s ``DCAEConfig``,
-``LaDCastDiTConfig``, ``ladcast_375m_config``, ``ladcast_1p6b_config``,
-``EDMSchedulerConfig``,
-``NoiseSamplerConfig``, ``RolloutConfig`` and ``config_from_dict``, with
+``LaDCastDiTConfig``, ``ladcast_375m_config``, ``dcae_ray_1024_config``,
+``ladcast_1p6b_config``, ``EDMSchedulerConfig``, ``NoiseSamplerConfig``,
+``RolloutConfig``, ``config_to_json`` and ``config_from_dict``, with
 the same fields and defaults (the shipped configs/DC_AE_84_pretrain.yaml
 and configs/ladcast_375M.yaml settings). Frozen, so a config is hashable
 and safe to share between modules.
@@ -12,6 +12,7 @@ and safe to share between modules.
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -145,6 +146,19 @@ def ladcast_375m_config(**overrides) -> LaDCastDiTConfig:
     return LaDCastDiTConfig(**overrides)
 
 
+def dcae_ray_1024_config(**overrides) -> DCAEConfig:
+    """The scaled-up DCAE of configs/dcae_ray_1024.yaml: widths (512, 1024,
+    1024, 2048), 1024 latent channels, 90 input channels (84 dynamic + 6
+    static, geopotential_at_surface added), 6 static channels."""
+    base = dict(
+        in_channels=90, out_channels=90, latent_channels=1024,
+        encoder_block_out_channels=(512, 1024, 1024, 2048),
+        decoder_block_out_channels=(512, 1024, 1024, 2048),
+        static_channels=6)
+    base.update(overrides)
+    return DCAEConfig(**base)
+
+
 def ladcast_1p6b_config(**overrides) -> LaDCastDiTConfig:
     """configs/ladcast_1.6B.yaml:2-31."""
     base = dict(num_attention_heads=16, num_layers=5, num_single_layers=10,
@@ -208,6 +222,11 @@ class RolloutConfig:
     @property
     def num_repetitions(self) -> int:
         return -(-self.total_num_steps // self.return_seq_len)
+
+
+def config_to_json(cfg) -> str:
+    """A config dataclass as indented JSON with sorted keys."""
+    return json.dumps(dataclasses.asdict(cfg), indent=2, sort_keys=True)
 
 
 def config_from_dict(cls, d: dict):

@@ -1,5 +1,5 @@
 """AR training dataset over pre-encoded latents (the port of
-``ladcast_tpu/data/latent_dataset.py``, its xarray source aside).
+``ladcast_tpu/data/latent_dataset.py``).
 
 Items are (input frames (T_in, h, w, C), target frames (T_out, h, w, C),
 timestamp YYYYMMDDHH of the first input frame), with strided time sampling
@@ -10,7 +10,9 @@ prefetches numpy batches on a host thread, in a seeded order per epoch.
 Sources: :class:`ArrayLatentSource` (an array in memory),
 :class:`ShardedLatentSource` (mmap'd ``.npy`` shards) and
 ``native_reader.NpyShardSource`` (the same shards through the C++ pread
-pool, with a page-cache readahead that the iterator drives).
+pool, with a page-cache readahead that the iterator drives);
+:func:`open_zarr_latent_source` reads the reference's latent zarr (xarray)
+into an :class:`ArrayLatentSource`.
 """
 
 from __future__ import annotations
@@ -85,6 +87,36 @@ class ShardedLatentSource:
 
     def timestamp(self, idx: int) -> int:
         return int(self.timestamps[idx])
+
+
+def open_zarr_latent_source(path: str, var_name: str = "latents",
+                            start_date: Optional[str] = None,
+                            end_date: Optional[str] = None,
+                            load_in_memory: bool = False) -> ArrayLatentSource:
+    """A latent zarr in the reference's layout, ``latents`` (time, C, H, W),
+    or (time, H, W, C), between two dates (requires xarray and pandas),
+    as (time, H, W, C) float32."""
+    import pandas as pd
+    import xarray as xr
+
+    ds = xr.open_dataset(path, engine="zarr", chunks="auto")
+    if start_date or end_date:
+        ds = ds.sel(time=slice(start_date, end_date))
+    da = ds[var_name]
+    dims = list(da.dims)
+    order = [d for d in ("time", "H", "W", "C") if d in dims]
+    if set(order) == set(dims):
+        da = da.transpose("time", "H", "W", "C")
+    else:  # the reference layout (C, time, H, W)
+        da = da.transpose(da.dims[1], da.dims[0], *da.dims[2:])
+    if load_in_memory:
+        da = da.load()
+    ts = [time_utils.timestamp_str_to_int(str(t)[:13])
+          for t in pd.to_datetime(da["time"].values).strftime("%Y-%m-%dT%H")]
+    arr = np.asarray(da.values, np.float32)
+    if arr.shape[1] < arr.shape[-1]:  # (time, C, H, W) -> (time, H, W, C)
+        arr = np.transpose(arr, (0, 2, 3, 1))
+    return ArrayLatentSource(arr, ts)
 
 
 @dataclass

@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import calendar
 from datetime import datetime, timedelta
-from typing import List, Optional, Sequence, Tuple
+from typing import Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -35,6 +35,12 @@ def year_progress(dt: datetime) -> float:
     start = datetime(dt.year, 1, 1)
     end = datetime(dt.year + 1, 1, 1)
     return (dt - start).total_seconds() / (end - start).total_seconds()
+
+
+def timestamps_to_year_progress(ts_ints: Iterable[int]) -> np.ndarray:
+    """(B,) YYYYMMDDHH ints -> (B,) float32 year progress."""
+    return np.asarray([year_progress(int_to_datetime(t)) for t in ts_ints],
+                      dtype=np.float32)
 
 
 def rollout_year_progress(init_ts_int: int, num_repetitions: int,

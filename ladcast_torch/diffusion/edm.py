@@ -41,6 +41,12 @@ def precondition_noise(sigma):
     return 0.25 * torch.log(sigma)
 
 
+def timesteps_from_sigmas(sigmas):
+    """The scheduler's ``timesteps``: each sigma's preconditioned noise
+    level (c_noise)."""
+    return precondition_noise(sigmas)
+
+
 def precondition_inputs(cfg: EDMSchedulerConfig, sample, sigma):
     return sample * (1.0 / torch.sqrt(sigma**2 + cfg.sigma_data**2))
 

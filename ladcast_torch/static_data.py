@@ -8,7 +8,7 @@ from __future__ import annotations
 import functools
 import json
 from pathlib import Path
-from typing import Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -18,27 +18,21 @@ _STATIC_DIR = Path(__file__).resolve().parent / "static"
 
 
 @functools.lru_cache(maxsize=None)
-def _load_json(name: str) -> dict:
+def load_normalization_json(name: str = "ERA5_normal_1979_2017.json") -> Dict:
+    """A bundled statistics file, parsed."""
     return json.loads((_STATIC_DIR / name).read_text())
 
 
-@functools.lru_cache(maxsize=None)
-def latent_mean_std() -> Tuple[np.ndarray, np.ndarray]:
-    """84-vector latent mean and std, float32."""
-    d = _load_json("ERA5_latent_normal_1979_2017_lat84.json")
-    return (np.asarray(d["mean"], dtype=np.float32),
-            np.asarray(d["std"], dtype=np.float32))
-
-
-@functools.lru_cache(maxsize=None)
-def era5_mean_std() -> Tuple[np.ndarray, np.ndarray]:
-    """Per-channel mean and std of the 84-channel dynamic stack, float32.
-    Level-keyed statistics expand in their JSON order, as in the
+def precompute_mean_std(normalization_param_dict: Dict,
+                        variable_names: List[str]) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-variable statistics as flat per-channel mean and std vectors,
+    float32. Level-keyed statistics expand in their JSON order, as in the
     reference."""
-    d = _load_json("ERA5_normal_1979_2017.json")
     means, stds = [], []
-    for var in ch.ATM_VARIABLES + ch.SURFACE_VARIABLES:
-        p = d[var]
+    for var in variable_names:
+        if var not in normalization_param_dict:
+            raise ValueError(f"No normalization parameters for variable {var}.")
+        p = normalization_param_dict[var]
         if isinstance(p["mean"], dict):
             means.extend(p["mean"][level] for level in p["mean"])
             stds.extend(p["std"][level] for level in p["mean"])
@@ -47,6 +41,30 @@ def era5_mean_std() -> Tuple[np.ndarray, np.ndarray]:
             stds.append(p["std"])
     return (np.asarray(means, dtype=np.float32),
             np.asarray(stds, dtype=np.float32))
+
+
+@functools.lru_cache(maxsize=None)
+def latent_mean_std() -> Tuple[np.ndarray, np.ndarray]:
+    """84-vector latent mean and std, float32."""
+    d = load_normalization_json("ERA5_latent_normal_1979_2017_lat84.json")
+    return (np.asarray(d["mean"], dtype=np.float32),
+            np.asarray(d["std"], dtype=np.float32))
+
+
+@functools.lru_cache(maxsize=None)
+def era5_mean_std(incl_sur_pressure: bool = False) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-channel mean and std of the 84-channel dynamic stack (and surface
+    pressure after it, if asked), float32."""
+    names = list(ch.ATM_VARIABLES) + list(ch.SURFACE_VARIABLES)
+    if incl_sur_pressure:
+        names.append("surface_pressure")
+    return precompute_mean_std(load_normalization_json(), names)
+
+
+def latent_lat_centers() -> np.ndarray:
+    """Latitudes (deg) of the 15 latent rows' patch centers."""
+    start, stop, num = ch.LATENT_LAT_CENTERS
+    return np.linspace(start, stop, num)
 
 
 def _raw_static_stack() -> np.ndarray:

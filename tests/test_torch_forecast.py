@@ -410,9 +410,12 @@ def test_cli_pred_rollout_on_the_cpu(world, tmp_path):
     assert _rel(np.moveaxis(arr[0, :, 0], 0, -1), z_j[0]) <= 3e-2  # bf16 DCAE
 
 
-def test_cli_flags_that_wait_raise(world, tmp_path):
-    """Only zarr data waits now; --shard_ensemble runs, and in one process
-    (one rank holds every member) writes the files of a run without it."""
+def test_cli_flags_that_wait_raise(world, tmp_path, monkeypatch):
+    """zarr data needs xarray, checked before the loads; --shard_ensemble
+    runs, and in one process (one rank holds every member) writes the files
+    of a run without it."""
+    import sys
+
     out = str(tmp_path / "x")
     plain, sharded = str(tmp_path / "plain"), str(tmp_path / "sharded")
     t_cli.run(_cli_args(world, plain), compute_dtype="float32")
@@ -424,8 +427,10 @@ def test_cli_flags_that_wait_raise(world, tmp_path):
                                       np.load(os.path.join(plain, name)))
     args = _cli_args(world, out)
     args.data = str(tmp_path / "era5.zarr")
-    with pytest.raises(NotImplementedError, match="M13"):
-        t_cli.run(args)
+    with monkeypatch.context() as m:
+        m.setitem(sys.modules, "xarray", None)
+        with pytest.raises(ImportError, match="xarray"):
+            t_cli.run(args)
     with pytest.raises(ValueError, match="together"):
         t_cli.run(_cli_args(world, out, "--start_date", "2018-01-01"))
     with pytest.raises(SystemExit):

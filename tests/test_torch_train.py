@@ -451,9 +451,11 @@ def test_metric_logger_without_wandb_says_so_once(tmp_path, monkeypatch, capsys)
     assert len(printed) == 1 and "log_with='wandb' unavailable" in printed[0]
 
 
-def test_cli_refuses_what_is_not_ported(tmp_path):
-    """zarr latents wait; a mesh the run's ranks cannot form raises the JAX
-    mesh errors, and a mesh without a data axis exits."""
+def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    """zarr latents need xarray; a mesh the run's ranks cannot form raises
+    the JAX mesh errors, and a mesh without a data axis exits."""
+    import sys
+
     cfg, lat = _cli_fixtures(tmp_path)
     base = ["--config", cfg, "--latents", lat, "--device", "cpu",
             "--output_dir", str(tmp_path / "x")]
@@ -464,7 +466,8 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
             t_cli.main(base + extra)
     with pytest.raises(SystemExit, match="'data' axis"):
         t_cli.main(base + ["--mesh", "model=1"])
-    with pytest.raises(NotImplementedError, match="M13"):
+    monkeypatch.setitem(sys.modules, "xarray", None)
+    with pytest.raises(ImportError, match="xarray"):
         t_cli.main(["--config", cfg, "--latents", str(tmp_path), "--device",
                     "cpu", "--output_dir", str(tmp_path / "x")])
 

@@ -250,7 +250,7 @@ def test_cli_validation_rotation_resume_and_finetune(tmp_path):
         assert moved == n.startswith("decoder."), n
 
 
-def test_cli_refusals(tmp_path):
+def test_cli_refusals(tmp_path, monkeypatch):
     _write_npz(tmp_path / "train.npz", 2, 0)
     # a parallel: section for more ranks than the run has: the mesh-size
     # error of the JAX mesh; the DCAE is data-parallel only
@@ -260,9 +260,13 @@ def test_cli_refusals(tmp_path):
     with pytest.raises(ValueError, match="data-parallel only"):
         t_cli.run({**TINY_CFG, "parallel": {"mesh": {"data": -1}, "zero": True}},
                   _args(tmp_path, "--num_steps", "1"))
-    with pytest.raises(NotImplementedError, match="M13"):
-        t_cli.run(TINY_CFG, t_cli.build_parser().parse_args(
-            ["--data", str(tmp_path / "era5.zarr"), "--device", "cpu"]))
+    import sys
+
+    with monkeypatch.context() as m:  # a zarr source needs xarray
+        m.setitem(sys.modules, "xarray", None)
+        with pytest.raises(ImportError, match="xarray"):
+            t_cli.run(TINY_CFG, t_cli.build_parser().parse_args(
+                ["--data", str(tmp_path / "era5.zarr"), "--device", "cpu"]))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             t_cli.run(TINY_CFG, t_cli.build_parser().parse_args(
