@@ -110,6 +110,17 @@ PyYAML.
      7 x 39 times per repetition (the conv kernels once per sphere conv of
      the encode and of each decode); the decode of 80 frames is then timed
      under both conv modes and its two results compared;
+  4a. bench: the bench's entry point, ``python3 -m ladcast_torch.bench``,
+     as a user runs it: with its defaults (the whole 240 h Heun-20
+     forecast of 20 members, warmed up and timed twice), its JSON line's
+     keys, a finite time, an MFU in (0, 1] and ``forecast_tflops`` equal
+     to this process's count of the main path's components; then
+     ``--sampler dpm --nfe 2 --profile DIR --dispatch-stats`` (the
+     metric's suffix, the trace, the dispatch line and its launches); one
+     375M DiT call at B=20 counted on the card (K1 and K2 reporting their
+     FLOPs) against the plain versions' count on the CPU (1e-6 relative);
+     ``make_bench`` over two processes on the card (gloo) against one
+     process's trajectory, member for member (``BENCH_SHARD_REL_L2``);
   5. training: ``ladcast_torch.cli.train_ar.main`` with ``--config
      configs/ladcast_375m.yaml`` (batch 4, 4 target frames, bf16
      compute on fp32 masters, AdamW, clip, cosine warmup, EMA) on a
@@ -172,7 +183,7 @@ PyYAML.
      ``torch._int_mm`` at the 375M's four (K, N) pairs at M = 20 x 2250:
      its int32 product equal to the fp64 product of the same int8 values,
      timed against bf16 ``torch.matmul`` and its bound at the card's int8
-     rate (``INT8_PEAKS``), and the whole w8a8 function against
+     rate (``utils.profiling.CARD_PEAKS``), and the whole w8a8 function against
      ``F.linear``;
   6f. tooling: ``pred_rollout`` as the Heun run of phase 6 without the
      decode inside ``utils.profiling.device_trace``: the trace's launches
@@ -181,8 +192,10 @@ PyYAML.
      shares, the five largest kernel categories and the longest idle gaps
      with the host's stages and ops in each (``tooling_trace``);
      ``utils.profiling.compile_report`` over one 375M DiT call at B=20
-     (``tooling_compile_report``: the FLOPs it counts leave out the
-     hand-written kernels, which it lists); the DCAE of
+     (``tooling_compile_report``: the FLOPs of the aten ops and of the
+     hand-written kernels, which report theirs as they launch, K1 and K2
+     seven launches each, ``flops_complete`` and no ``uncounted``); the
+     DCAE of
      configs/dcae_ray_1024.yaml at full width (90 channels, 6 statics,
      widths 512 to 2048, a 1024-channel latent) on seeded weights in bf16:
      an encode of (1, 120, 240, 84) fields and a decode of a (1, 15, 30,
@@ -246,13 +259,18 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# Dense peaks (NVIDIA data sheets): bf16 tensor-core and fp32 CUDA-core
-# FLOP/s, HBM bytes/s, and TF32 tensor-core FLOP/s (half the bf16 rate).
-# Matched on the card's name; the H100 SXM is the default.
-PEAKS = [("H100 PCIe", 756e12, 51e12, 2.0e12, 378e12),
-         ("H100 NVL", 835e12, 60e12, 3.9e12, 417.5e12),
-         ("H200", 989e12, 67e12, 4.8e12, 494.5e12),
-         ("", 989e12, 67e12, 3.35e12, 494.5e12)]
+# The cards' dense peaks are the package's table,
+# ``ladcast_torch.utils.profiling.CARD_PEAKS``, which the bench's MFU also
+# reads: ``card_peaks`` gives the phases' (bf16 FLOP/s, fp32 CUDA-core
+# FLOP/s, HBM bytes/s, TF32 FLOP/s) of the card and its int8 op/s; ``PEAKS``
+# is the table's rows in that order, by the card's name.
+
+
+def card_peaks(name):
+    from ladcast_torch.utils.profiling import card_peaks as package_peaks
+
+    p = package_peaks(name)
+    return (p["bf16"], p["fp32"], p["bytes"], p["tf32"]), p["int8"]
 
 # A kernel passes when |kernel - plain| <= atol + rtol * |plain| for every
 # element and the relative L2 error is at most rel_l2. In bf16, fp32 results
@@ -322,6 +340,11 @@ SHIPPED_YAML = {"LADCAST_375M_YAML": "ladcast_375m", "LADCAST_1P6B_YAML": "ladca
 def __getattr__(name):
     if name in SHIPPED_YAML:
         return shipped_yaml(SHIPPED_YAML[name])
+    if name == "PEAKS":
+        from ladcast_torch.utils.profiling import CARD_PEAKS
+
+        return [(key, p["bf16"], p["fp32"], p["bytes"], p["tf32"])
+                for key, p in CARD_PEAKS]
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
@@ -1838,6 +1861,210 @@ def main_path_phase(reps):
     return launches, bench
 
 
+# The bench phase: the JSON line's keys; the limit of one call of the bench
+# CLI; the relative L2 limit, per member, of the bench's trajectory over two
+# processes on the card against one process's: the 375M bf16 limit that the
+# member-sharded forecast of the parallel phase is held to (that forecast
+# reads about 1.2e-3, the bench 1.6e-3: bf16 GEMMs over 10 members a batch
+# round otherwise than over 20).
+BENCH_KEYS = {"metric", "value", "unit", "member_denoise_steps_per_s", "denoiser_mfu",
+              "forecast_tflops"}
+BENCH_TIMEOUT_S = 600
+BENCH_SHARD_REL_L2 = MODEL_TOL["bfloat16"]
+BENCH_SEED = 8
+DISPATCH_PREFIX = "# dispatch stats (issue vs device-sync per forecast): "
+
+
+def _bench_cli(*flags, env=None, timeout=BENCH_TIMEOUT_S):
+    """``python3 -m ladcast_torch.bench`` with ``flags`` from the checkout's
+    root, as a user runs it: (stdout lines, its JSON line, seconds)."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "ladcast_torch.bench", *flags],
+                       cwd=str(ROOT), capture_output=True, text=True, timeout=timeout,
+                       env={**os.environ, **(env or {})})
+    wall_s = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"ladcast_torch.bench {' '.join(flags)} exited "
+                             f"{r.returncode}:\n{r.stderr[-4000:]}")
+    lines = r.stdout.strip().splitlines()
+    return lines, json.loads(lines[-1]), wall_s
+
+
+def bench_phase(tmp, bench, reps):
+    """The bench's entry point (``ladcast_torch.bench``) on the card.
+
+    (a) ``python3 -m ladcast_torch.bench`` with its defaults (the 240 h,
+    Heun-20, 20-member forecast: a warm-up and two timed forecasts): its
+    last line has the keys of BENCH_KEYS, a finite ``value``, ``0 <
+    denoiser_mfu <= 1`` and ``forecast_tflops`` equal to the FLOPs that
+    this process counts of the main path's components (``bench``'s
+    ``flops_components``, combined by ``bench.forecast_flops``). (b)
+    ``--sampler dpm --nfe 2 --profile DIR --dispatch-stats``: the metric's
+    suffix, the trace file, and the dispatch line, whose launches per timed
+    forecast must be K1 and K2 7 x 2 x 10, K4 and K5 one encode and ten
+    decodes. (c) One 375M DiT call at B=20 counted on the card (K1 and K2
+    launching and reporting their FLOPs) against 20 times the same call
+    through the plain versions on the CPU in fp32 at B=1: equal to 1e-6
+    relative, nothing uncounted. (d) :func:`bench_two_ranks`: ``make_bench``
+    over two processes on the card (gloo; 10 members each, ``reps``
+    repetitions) against this process's ``full_forecast_traj``, member for
+    member (BENCH_SHARD_REL_L2)."""
+    import numpy as np
+    import torch
+
+    from ladcast_torch import bench as bench_mod
+    from ladcast_torch.config import RolloutConfig, ladcast_375m_config
+    from ladcast_torch.models.ladcast_dit import build_dit
+    from ladcast_torch.utils.profiling import FlopCount
+
+    card = nvidia_smi_line()
+    results = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    comps = bench["flops_components"]()
+    count_s = time.perf_counter() - t0
+
+    # (a) the defaults
+    lines, line, wall_s = _bench_cli()
+    want_tflops = round(bench_mod.forecast_flops(RolloutConfig(), *comps) / 1e12, 1)
+    rec = {"phase": "bench_cli", "card": card, "argv": [], "line": line,
+           "command_s": wall_s, "flops_components": comps, "count_s": count_s,
+           "expected_forecast_tflops": want_tflops, "comment_lines": lines[:-1]}
+    emit(rec)
+    if (set(line) != BENCH_KEYS or not math.isfinite(line["value"]) or line["value"] <= 0
+            or not 0 < line["denoiser_mfu"] <= 1 or line["unit"] != "s"
+            or line["forecast_tflops"] != want_tflops
+            or line["metric"] != "375M 20-member 240h ensemble rollout wall-clock "
+                                 "(1 card, 20 members incl. encode+decode)"):
+        raise AssertionError(f"the bench's line: {rec}")
+    results["cli"] = rec
+
+    # (b) a short run with the trace and the dispatch stats
+    trace_dir = os.path.join(tmp, "bench_trace")
+    lines, line, wall_s = _bench_cli("--sampler", "dpm", "--nfe", "2", "--profile",
+                                     trace_dir, "--dispatch-stats",
+                                     env={"LADCAST_BENCH_NO_WAIT": "1"})
+    dispatch = [json.loads(x[len(DISPATCH_PREFIX):]) for x in lines
+                if x.startswith(DISPATCH_PREFIX)]
+    trace_file = os.path.join(trace_dir, "trace.json")
+    enc = sphere_conv_counts(bench["dcae"].encoder)
+    dec = sphere_conv_counts(bench["dcae"].decoder)
+    expected = {"norm_rope": 7 * 2 * 10, "fused_attention": 7 * 2 * 10,
+                **{k: enc[k] + 10 * dec[k] for k in enc}}
+    dpm2 = RolloutConfig(sampler_type="dpm", num_inference_steps=2)
+    rec = {"phase": "bench_cli_short", "card": card,
+           "argv": ["--sampler", "dpm", "--nfe", "2", "--profile", "DIR",
+                    "--dispatch-stats"], "line": line, "command_s": wall_s,
+           "dispatch_stats": dispatch, "expected_launches": expected,
+           "trace_mb": (os.path.getsize(trace_file) / 2**20
+                        if os.path.isfile(trace_file) else None),
+           "expected_forecast_tflops": round(
+               bench_mod.forecast_flops(dpm2, *comps) / 1e12, 1)}
+    emit(rec)
+    if (set(line) != BENCH_KEYS
+            or not line["metric"].endswith(" [sampler=dpm nfe=2]")
+            or line["forecast_tflops"] != rec["expected_forecast_tflops"]
+            or rec["trace_mb"] is None or len(dispatch) != 1 or len(dispatch[0]) != 2
+            or any(d["launches"] != expected or d["issue_s"] < 0 or d["sync_s"] < 0
+                   for d in dispatch[0])):
+        raise AssertionError(f"the bench's short run: {rec}")
+    shutil.rmtree(trace_dir)
+    results["cli_short"] = rec
+    results["launches"] = dispatch[0][0]["launches"]
+
+    # (c) one DiT call's count on the card against the plain versions'
+    dev = torch.device("cuda")
+    ens, dt = 20, torch.bfloat16
+    x0 = torch.zeros((ens, 4, 15, 30, 84), device=dev, dtype=dt)
+    kn0 = torch.zeros((ens, 1, 15, 30, 84), device=dev, dtype=dt)
+    ee = torch.zeros((ens,), device=dev)
+    with torch.inference_mode(), FlopCount() as on_card:
+        bench["dit"](x0, ee, kn0, ee)
+        torch.cuda.synchronize()
+    # the DiT's products are linear in the batch (B=1 and B=2 counted
+    # exactly 1:2 on the card's machine), so the CPU counts one member
+    t0 = time.perf_counter()
+    cpu_dit = build_dit(ladcast_375m_config(), "cpu", torch.float32, seed=3)
+    with torch.inference_mode(), FlopCount() as plain:
+        cpu_dit(torch.zeros(1, 4, 15, 30, 84), torch.zeros(1),
+                torch.zeros(1, 1, 15, 30, 84), torch.zeros(1))
+    del cpu_dit
+    rel = abs(on_card.total - ens * plain.total) / (ens * plain.total)
+    rec = {"phase": "bench_flop_count", "card": card, "B": ens, "dtype": str(dt),
+           "card_flops": on_card.total, "kernels": on_card.kernels,
+           "uncounted": on_card.uncounted, "plain_flops_b1": plain.total,
+           "plain_flops_b20": ens * plain.total, "rel_diff": rel, "tol": 1e-6,
+           "flops_components_net": comps[0], "plain_cpu_s": time.perf_counter() - t0,
+           "kernel_flops_share": sum(k["flops"] for k in on_card.kernels.values())
+                                 / on_card.total}
+    emit(rec)
+    if (on_card.uncounted or rel > 1e-6 or on_card.total != comps[0]
+            or {k: v["launches"] for k, v in on_card.kernels.items()}
+            != {"norm_rope": 7, "fused_attention": 7}
+            or on_card.kernels["norm_rope"]["flops"] != 0):
+        raise AssertionError(f"the FLOP count of a DiT call: {rec}")
+    results["flop_count"] = rec
+    results["two_ranks"] = bench_two_ranks(tmp, bench, reps)
+    return results
+
+
+def bench_two_ranks(tmp, bench, reps):
+    """``bench_phase``'s (d): ``make_bench`` over two processes on the card
+    against this process's ``full_forecast_traj``."""
+    import numpy as np
+    import torch
+
+    card = nvidia_smi_line()
+    t0 = time.perf_counter()
+    want = bench["full_forecast_traj"](BENCH_SEED)
+    ref_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()  # the two processes' models and decodes
+    t0 = time.perf_counter()
+    ranks = spawn_two("bench", [str(reps), str(BENCH_SEED)], tmp)
+    wall_s = time.perf_counter() - t0
+    got = np.load(ranks[0]["traj"])
+    same = np.array_equal(got, np.load(ranks[1]["traj"]))
+    rel = [float(np.linalg.norm(got[m] - want[m]) / np.linalg.norm(want[m]))
+           for m in range(want.shape[0])] if got.shape == want.shape else [math.inf]
+    rec = {"phase": "bench_two_ranks", "card": card, "ranks": 2, "backend": "gloo",
+           "members": want.shape[0], "repetitions": reps, "shape": list(got.shape),
+           "finite": bool(np.isfinite(got).all()), "ranks_agree": same,
+           "member_rel_l2": rel, "max_member_rel_l2": max(rel), "tol": BENCH_SHARD_REL_L2,
+           "bit_equal": bool(np.array_equal(got, want)), "one_process_s": ref_s,
+           "run_wall_s": wall_s,
+           "per_rank": [{k: r[k] for k in ("rank", "wall_s", "launches", "peak_mem_gb",
+                                           "members")} for r in ranks]}
+    emit(rec)
+    if not (rec["finite"] and same and max(rel) <= BENCH_SHARD_REL_L2
+            and [r["members"] for r in ranks] == [[0, 10], [10, 10]]):
+        raise AssertionError(f"the bench over two processes: {rec}")
+    return rec
+
+
+def _bench_rank(reps, seed, out, rank):
+    """One rank of the bench over two processes on the card: the 375M, 20
+    members, ``reps`` repetitions; writes the gathered trajectory."""
+    import numpy as np
+    import torch
+
+    from ladcast_torch.bench import make_bench
+    from ladcast_torch.config import (
+        DCAEConfig,
+        EDMSchedulerConfig,
+        RolloutConfig,
+        ladcast_375m_config,
+    )
+
+    rcfg = RolloutConfig(ensemble_size=20, total_lead_time_hour=24 * reps)
+    b = make_bench(ladcast_375m_config(), DCAEConfig(), EDMSchedulerConfig(), rcfg,
+                   compute_dtype=torch.bfloat16)
+    path = os.path.join(out, f"traj_rank{rank}.npy")
+    np.save(path, b["full_forecast_traj"](seed))
+    return {"traj": path, "members": [b["member_offset"], b["members"]]}
+
+
 def forecast_phase(tmp):
     """``cli.pred_rollout`` at full width from hub directories the port
     writes: the Heun sampler with decode, then the DPM sampler."""
@@ -2580,10 +2807,13 @@ def tooling_phase(tmp, forecast, device="cuda", dit_cfg=None, ray_cfg=None,
     report = profiling.compile_report(call)
     rec = {"phase": "tooling_compile_report", "B": batch, "dtype": str(dt),
            "kernels_built_before": cuda, **report,
-           "expected_uncounted": {"norm_rope": 7, "fused_attention": 7} if cuda else {}}
+           "expected_kernel_launches": {"norm_rope": 7, "fused_attention": 7} if cuda else {}}
     emit(rec)
-    if (set(report) != {"first_call_s", "steady_s", "flops", "flops_complete", "uncounted"}
-            or report["uncounted"] != rec["expected_uncounted"] or report["flops"] <= 0):
+    if (set(report) != {"first_call_s", "steady_s", "flops", "kernels", "flops_complete",
+                        "uncounted"}
+            or not report["flops_complete"] or report["uncounted"]
+            or {k: v["launches"] for k, v in report["kernels"].items()}
+            != rec["expected_kernel_launches"] or report["flops"] <= 0):
         raise AssertionError(f"compile_report: {rec}")
     results["compile_report"] = rec
     del dit, lat, cond
@@ -2689,10 +2919,6 @@ INT8_REL_L2 = 0.1
 # main path's tokens: 20 members x 2250.
 INT8_GEMM_PAIRS = [(1536, 1536), (1536, 6144), (6144, 1536), (7680, 1536)]
 INT8_GEMM_M = 20 * 2250
-# Dense int8 tensor-core op/s (NVIDIA data sheets), matched on the card's
-# name as PEAKS is; the H100 SXM is the default.
-INT8_PEAKS = [("H100 PCIe", 1513e12), ("H100 NVL", 1671e12), ("H200", 1979e12),
-              ("", 1979e12)]
 # The dcae_temb phase's width: no shipped config sets temb_channels.
 DCAE_TEMB_CHANNELS = 512
 
@@ -3153,20 +3379,26 @@ def _parallel_worker(rank, world, store, job, argv, out):
     dist.initialize(backend="gloo", init_method=f"file://{store}", world_size=world,
                     rank=rank)
     try:
-        cli = pred_rollout if job == "pred_rollout" else evaluate_ens
-        args = cli.build_parser().parse_args(argv)
-        cuda = args.device.startswith("cuda")
+        if job == "bench":
+            cuda, run = True, lambda: _bench_rank(int(argv[0]), int(argv[1]), out, rank)
+        else:
+            cli = pred_rollout if job == "pred_rollout" else evaluate_ens
+            args = cli.build_parser().parse_args(argv)
+            cuda, run = args.device.startswith("cuda"), lambda: cli.run(args)
         if cuda:
             torch.cuda.reset_peak_memory_stats()
         _reset_launches(fa)
         _reset_conv_launches()
         t0 = time.perf_counter()
-        res = cli.run(args)
+        res = run()
         wall_s = time.perf_counter() - t0
-        recs = res if job == "pred_rollout" else res["records"]
-        rec = {"rank": rank, "wall_s": wall_s, "records": recs,
+        rec = {"rank": rank, "wall_s": wall_s,
                "launches": {**_launches(fa), **_conv_launches()},
                "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30 if cuda else None}
+        if job == "bench":
+            rec.update(res)
+        else:
+            rec["records"] = res if job == "pred_rollout" else res["records"]
         with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
             json.dump(rec, f)
     finally:
@@ -3174,7 +3406,8 @@ def _parallel_worker(rank, world, store, job, argv, out):
 
 
 def spawn_two(job, argv, tmp, timeout=PARALLEL_SPAWN_TIMEOUT_S):
-    """``job`` ("pred_rollout" or "evaluate_ens") with ``argv`` in two
+    """``job`` ("pred_rollout" or "evaluate_ens" with ``argv`` as its
+    command line, or "bench" with ``argv`` [repetitions, seed]) in two
     processes; returns each rank's record. A failed rank fails the phase;
     no process outlives the call."""
     import torch.multiprocessing as mp
@@ -3555,13 +3788,18 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, args.fp32_only or str(ROOT))
+    sys.path.insert(0, str(ROOT))
     try:
-        from ladcast_torch.ops import _build
+        peaks, int8_peak = card_peaks(torch.cuda.get_device_name(0))
     except ImportError as e:
         print(f"chip_smoke: the ladcast_torch package is missing ({e})",
               file=sys.stderr)
         return 2
+    if args.fp32_only:  # the package of the checkout at that root, fresh
+        for mod in [m for m in sys.modules if m.split(".")[0] == "ladcast_torch"]:
+            del sys.modules[mod]
+        sys.path.insert(0, args.fp32_only)
+    from ladcast_torch.ops import _build
 
     if args.records:
         global RECORDS
@@ -3570,8 +3808,6 @@ def main():
         RECORDS.write_text("")
     card = nvidia_smi_line()
     name = torch.cuda.get_device_name(0)
-    peaks = next(p[1:] for p in PEAKS if p[0] in name)
-    int8_peak = next(p[1] for p in INT8_PEAKS if p[0] in name)
     if args.fp32_ab or args.fp32_only:
         if args.fp32_ab:
             fp32_ab(args.fp32_ab)
@@ -3657,6 +3893,10 @@ def main():
     launches, bench = main_path_phase(args.reps)
     if args.profile:
         profile_phase("inference", lambda: bench["full_forecast"](6))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        bench_cli = bench_phase(tmp, bench, args.reps)
+    emit({"phase": "bench_done", "wall_s": time.perf_counter() - t0})
     del bench
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -3754,10 +3994,13 @@ def main():
         e["int8_forecast_launches"] = int8["forecast"]["launches"][kname]
         e["data_sources_train_ar_launches"] = data["train_ar"]["launches"][kname]
         e["parallel_launches"] = parallel_launches(kname)
+        # a timed forecast of the bench CLI's short run (DPM-2, 240 h)
+        e["bench_cli_launches"] = bench_cli["launches"][kname]
         # the profiled forecast (no decode) and one DiT call's compile report
         e["tooling_launches"] = {
             "traced_forecast": tooling["trace"]["launches"][kname],
-            "compile_report_dit_call": tooling["compile_report"]["uncounted"][kname]}
+            "compile_report_dit_call":
+                tooling["compile_report"]["kernels"][kname]["launches"]}
         summary.append(e)
     e = entry("fused_attention_lse", results["fused_attention_lse"],
               train_launches["fused_attention_lse"])
@@ -3804,6 +4047,7 @@ def main():
         e = entry(kname, results[kname], forecast_launches[kname], case, batch)
         e["batch"] = batch
         e["bench_launches"] = launches[kname]
+        e["bench_cli_launches"] = bench_cli["launches"][kname]
         # the chain: per DCAE training step (forward only; the backward is
         # the plain version's VJP) and per scored init time (4 leads)
         td, ev = chain["train_dcae"], chain["evaluate_ens"]

@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from ladcast_torch.ops import _launch
+from ladcast_torch.utils.profiling import count_kernel
 
 Pads = Tuple[Tuple[int, int], Tuple[int, int]]
 NO_PAD: Pads = ((0, 0), (0, 0))
@@ -48,6 +49,13 @@ def out_hw(x_shape, kh: int, kw: int, pads: Pads, circular_w: bool):
         raise ValueError(f"circular_w needs W pads summing to kw - 1 = "
                          f"{kw - 1}, each at most W = {W}; got {(pw0, pw1)}")
     return H + ph0 + ph1 - kh + 1, W + pw0 + pw1 - kw + 1
+
+
+def conv_flops(out: torch.Tensor, cin: int, kh: int, kw: int) -> int:
+    """FLOPs of a conv of ``out`` (B, H_out, W_out, Cout) over ``cin`` input
+    channels a group (1 for a depthwise conv) and kh x kw taps: what
+    ``FlopCounterMode`` counts of the plain version's ``F.conv2d``."""
+    return 2 * out.numel() * cin * kh * kw
 
 
 def pad_nhwc(x: torch.Tensor, pads: Pads, circular_w: bool) -> torch.Tensor:
@@ -195,7 +203,8 @@ def dense_conv_forward(x: torch.Tensor, w: Weight, pads: Pads = NO_PAD,
                        circular_w: bool = False) -> torch.Tensor:
     """x (B, H, W, Cin), w (kh, kw, Cin, Cout) or its packed form ->
     (B, H_out, W_out, Cout). The kernel on CUDA tensors (counted in
-    ``launches``, and the fp32 kernel's also in ``f32_launches``), on the
+    ``launches``, and the fp32 kernel's also in ``f32_launches``; its FLOPs
+    reported to ``utils.profiling.count_kernel``), on the
     packed weight, packed here if given HWIO; the plain version on CPU
     tensors. The result carries no gradient."""
     if x.device.type == "cpu":
@@ -236,6 +245,7 @@ def dense_conv_forward(x: torch.Tensor, w: Weight, pads: Pads = NO_PAD,
             n_tile(cout, x.dtype), _launch.DTYPE_CODES[x.dtype],
             torch.cuda.current_stream(x.device).cuda_stream))
         dense_conv_forward.launches += 1
+        count_kernel("dense_conv", conv_flops(out, Cin, kh, kw))
         if x.dtype == torch.float32:
             dense_conv_forward.f32_launches += 1
     return out

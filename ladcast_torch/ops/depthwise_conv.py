@@ -21,7 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from ladcast_torch.ops import _launch
-from ladcast_torch.ops.dense_conv import NO_PAD, Pads, out_hw, pad_nhwc
+from ladcast_torch.ops.dense_conv import NO_PAD, Pads, conv_flops, out_hw, pad_nhwc
+from ladcast_torch.utils.profiling import count_kernel
 
 KERNEL_SIZES = (3, 5)  # the square kernels the CUDA kernel is built for
 
@@ -43,8 +44,9 @@ def depthwise_same_conv_forward(x: torch.Tensor, k: torch.Tensor,
                                 pads: Pads = NO_PAD,
                                 circular_w: bool = False) -> torch.Tensor:
     """x (B, H, W, C), k (kh, kw, C) -> (B, H_out, W_out, C). The kernel on
-    CUDA tensors (counted in ``launches``), the plain version on CPU
-    tensors; the result carries no gradient."""
+    CUDA tensors (counted in ``launches``, its FLOPs reported to
+    ``utils.profiling.count_kernel``), the plain version on CPU tensors; the
+    result carries no gradient."""
     if x.device.type == "cpu":
         return depthwise_same_conv_plain(x, k, pads, circular_w)
     if x.dim() != 4 or k.dim() != 3 or k.shape[2] != x.shape[3]:
@@ -74,6 +76,7 @@ def depthwise_same_conv_forward(x: torch.Tensor, k: torch.Tensor,
             _launch.DTYPE_CODES[x.dtype],
             torch.cuda.current_stream(x.device).cuda_stream))
         depthwise_same_conv_forward.launches += 1
+        count_kernel("depthwise_conv", conv_flops(out, 1, kh, kw))
     return out
 
 

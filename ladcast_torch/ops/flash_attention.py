@@ -38,8 +38,10 @@ segment un-rotated, and weight rows let segments carry different norm
 weights. Layout is BSHD throughout.
 
 A wrapper given CPU tensors runs its plain version. Given CUDA tensors it
-launches its kernel, counting the launch in its ``launches`` attribute, or
-raises; it never falls back to the plain version. A kernel's result carries
+launches its kernel, counting the launch in its ``launches`` attribute and
+reporting its FLOPs (``utils.profiling.count_kernel``: what
+``FlopCounterMode`` counts of the plain version, :func:`attention_flops`),
+or raises; it never falls back to the plain version. A kernel's result carries
 no gradient, so a wrapper also raises when a CUDA input requires grad while
 grad mode is on: differentiable callers go through
 :func:`fused_norm_rope_attention`.
@@ -62,8 +64,18 @@ from ladcast_torch.ops._launch import (
     with_vjp as _with_vjp,
 )
 from ladcast_torch.ops.rope import rotate_pairs
+from ladcast_torch.utils.profiling import count_kernel
 
 HEAD_DIM = 128  # the only head size of the fused norm+RoPE kernels
+
+
+def attention_flops(q: torch.Tensor, k: torch.Tensor, products: int) -> int:
+    """FLOPs of ``products`` attention-sized products over q (B, Sq, H, D)
+    and k (B, Sk, H, D), 2 B Sq H D Sk each: what ``FlopCounterMode``
+    counts of a plain version's einsums. K1 and K6 have two (QK^T, PV), the
+    dq kernel three, the dk/dv kernel four (each recomputes P and dP); K2
+    has none."""
+    return 2 * products * q.numel() * k.shape[1]
 
 
 def _norm_rope_f32(x, w, cos, sin, eps):
@@ -102,6 +114,7 @@ def norm_rope(x: torch.Tensor, w: torch.Tensor, cos: torch.Tensor,
             sin.data_ptr(), B * S * H, S, H, eps, _DTYPE_CODES[x.dtype],
             torch.cuda.current_stream(x.device).cuda_stream))
         norm_rope.launches += 1
+        count_kernel("norm_rope", 0)
     return out
 
 
@@ -168,6 +181,7 @@ def fused_attention(q: torch.Tensor, kn: torch.Tensor, v: torch.Tensor,
             torch.cuda.current_stream(q.device).cuda_stream))
         fused_attention.launches += 1
         fused_attention.lse_launches += return_lse
+        count_kernel("fused_attention", attention_flops(q, kn, 2))
     return (out, lse) if return_lse else out
 
 
@@ -229,6 +243,7 @@ def flash_bwd_dq(qn, kn, v, g, lse, delta, scale: float) -> torch.Tensor:
     _launch_bwd("flash_bwd_dq", "ladcast_flash_bwd_dq",
                 (qn, kn, v, g, lse, delta), (dq,), scale)
     flash_bwd_dq.launches += 1
+    count_kernel("flash_bwd_dq", attention_flops(qn, kn, 3))
     return dq
 
 
@@ -243,6 +258,7 @@ def flash_bwd_dkv(qn, kn, v, g, lse, delta, scale: float):
     _launch_bwd("flash_bwd_dkv", "ladcast_flash_bwd_dkv",
                 (qn, kn, v, g, lse, delta), (dk, dv), scale)
     flash_bwd_dkv.launches += 1
+    count_kernel("flash_bwd_dkv", attention_flops(qn, kn, 4))
     return dk, dv
 
 
@@ -468,6 +484,7 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
             Sq, Sk, H, D, 1.0 / (D ** 0.5), _DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream))
         flash_attention_forward.launches += 1
+        count_kernel("flash_attention", attention_flops(q, k, 2))
     return out
 
 

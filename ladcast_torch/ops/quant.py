@@ -33,6 +33,7 @@ from typing import Optional
 import torch
 
 from ladcast_torch.models.layers import Dense, dense
+from ladcast_torch.utils.profiling import count_kernel
 
 
 def quantize_rows(x: torch.Tensor):
@@ -46,10 +47,23 @@ def quantize_rows(x: torch.Tensor):
     return torch.div(x, scale).round_().to(torch.int8), scale
 
 
+def int8_mm_flops(a: torch.Tensor, b: torch.Tensor) -> int:
+    """FLOPs of ``int8_mm(a, b)`` that ``FlopCounterMode`` does not count:
+    2 M K N, what it counts of the plain version's int32 ``matmul``, where it
+    does not count ``torch._int_mm`` itself (the op has no FLOP formula in
+    the torch this was written for), and none where it does."""
+    from torch.utils.flop_counter import flop_registry
+
+    if torch.ops.aten._int_mm in flop_registry:
+        return 0
+    return 2 * a.shape[0] * a.shape[1] * b.shape[1]
+
+
 def int8_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The exact int32 product of int8 ``a`` (M, K) and ``b`` (K, N). On
-    CUDA tensors ``torch._int_mm`` (counted in ``launches``); on CPU
-    tensors an int32 matmul."""
+    CUDA tensors ``torch._int_mm`` (counted in ``launches``, its FLOPs
+    reported to ``utils.profiling.count_kernel``); on CPU tensors an int32
+    matmul."""
     if a.dtype != torch.int8 or b.dtype != torch.int8 or a.dim() != 2 or b.dim() != 2:
         raise ValueError(f"int8_mm: expected 2-D int8 operands, got {a.dtype} "
                          f"{tuple(a.shape)} and {b.dtype} {tuple(b.shape)}")
@@ -63,6 +77,7 @@ def int8_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"int8_mm: torch._int_mm needs M > 16 and K, N "
                          f"multiples of 8; got M={M}, K={K}, N={N}")
     int8_mm.launches += 1
+    count_kernel("int8_mm", int8_mm_flops(a, b))
     return torch._int_mm(a, b)
 
 

@@ -68,12 +68,16 @@ def test_pixel_shuffle_exact_and_torch_order():
     np.testing.assert_array_equal(un.numpy(), ref.permute(0, 2, 3, 1).numpy())
 
 
-def _models():
+@pytest.fixture(scope="module")
+def models():
+    """The JAX DCAE, its parameters, the port's DCAE with them, and the
+    inputs; one build for the tests that share them."""
     rng = np.random.RandomState(0)
     x = rng.randn(2, 16, 32, 8).astype(np.float32)
     static = rng.randn(16, 32, 1).astype(np.float32)
     jmodel = JaxAE(j_config.DCAEConfig(**TINY))
-    params = jax.tree.map(np.asarray, jmodel.init(
+    # jitted: one compile, where op-by-op dispatch compiles every op
+    params = jax.tree.map(np.asarray, jax.jit(jmodel.init)(
         jax.random.PRNGKey(0), jnp.asarray(x), jnp.asarray(static)))
     tmodel = TorchAE(t_config.DCAEConfig(**TINY))
     tmodel.load_state_dict(state_dict_from_flax(params, "dcae"), strict=True)
@@ -84,14 +88,15 @@ def _rel(a, b):
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
 
-def test_tiny_encode_decode_match_jax(monkeypatch):
+def test_tiny_encode_decode_match_jax(models, monkeypatch):
     """Under both conv modes: the kernels' plain versions in the
     fused-boundary form (the default) and ``F.conv2d`` in the 3-slice form."""
-    jmodel, params, tmodel, x, static = _models()
-    z_j = np.asarray(jmodel.apply(params, jnp.asarray(x), jnp.asarray(static),
-                                  method=JaxAE.encode))
-    y_js = {rs: np.asarray(jmodel.apply(params, jnp.asarray(z_j), rs,
-                                        method=JaxAE.decode))
+    jmodel, params, tmodel, x, static = models
+    z_j = np.asarray(jax.jit(lambda p, a, s: jmodel.apply(p, a, s, method=JaxAE.encode))(
+        params, jnp.asarray(x), jnp.asarray(static)))
+    y_js = {rs: np.asarray(jax.jit(
+        lambda p, z, rs=rs: jmodel.apply(p, z, rs, method=JaxAE.decode))(
+            params, jnp.asarray(z_j)))
             for rs in (False, True)}
     assert t_sphere.CONV_MODE == "kernel"
     for mode in ("kernel", "library"):
@@ -127,8 +132,8 @@ def test_sphere_conv_layer_keeps_its_repacked_weight():
     assert conv.weight.grad is not None and conv.weight.grad.abs().max() > 0
 
 
-def test_state_dict_from_flax_equals_export():
-    _, params, _, _, _ = _models()
+def test_state_dict_from_flax_equals_export(models):
+    _, params, _, _, _ = models
     ours = state_dict_from_flax(params, "dcae")
     ref = export_reference_state_dict(params, "dcae")
     assert list(ours) == list(ref)

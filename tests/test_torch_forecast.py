@@ -177,10 +177,11 @@ def world(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("forecast")
     j_dit_cfg = j_config.LaDCastDiTConfig(**DIT_KW, attention_impl="xla")
     j_dcae_cfg = j_config.DCAEConfig(**DCAE_KW)
-    dit_params = JaxDiT(j_dit_cfg).init(
+    # jitted inits: one compile each, where op-by-op dispatch compiles every op
+    dit_params = jax.jit(JaxDiT(j_dit_cfg).init)(
         jax.random.PRNGKey(1), jnp.zeros((1, 2, 3, 6, 84)), jnp.zeros((1,)),
         jnp.zeros((1, 1, 3, 6, 84)), jnp.zeros((1,)))
-    dcae_params = JaxAE(j_dcae_cfg).init(
+    dcae_params = jax.jit(JaxAE(j_dcae_cfg).init)(
         jax.random.PRNGKey(0), jnp.zeros((1, 16, 32, 84)), jnp.zeros((16, 32, 5)))
     dit_dir, dcae_dir = str(tmp / "dit"), str(tmp / "dcae")
     j_hub.save_pretrained(dit_dir, "dit", j_dit_cfg, dit_params,
@@ -257,14 +258,15 @@ def test_hub_directories_written_by_the_port_load_in_jax(world, tmp_path):
     rng = np.random.RandomState(3)
     z = rng.randn(2, 2, 4, 84).astype(np.float32)  # a small grid: 16 x 32
     want = t_pipe.dcae.decode(torch.from_numpy(z)).detach().numpy()
-    got = JaxAE(jc.config).apply(jc.params, jnp.asarray(z), method=JaxAE.decode)
+    got = jax.jit(lambda p, a: JaxAE(jc.config).apply(p, a, method=JaxAE.decode))(
+        jc.params, jnp.asarray(z))
     assert _rel(got, want) <= 1e-4
     lat, cond = (rng.randn(2, t, 3, 6, 84).astype(np.float32) for t in (2, 1))
     cn, yp = rng.randn(2).astype(np.float32), rng.rand(2).astype(np.float32)
     with torch.no_grad():
         want = t_pipe.dit(*(torch.from_numpy(a) for a in (lat, cn, cond, yp))).numpy()
-    got = JaxDiT(jd.config).apply(jd.params, *(jnp.asarray(a) for a in
-                                               (lat, cn, cond, yp)))
+    got = jax.jit(JaxDiT(jd.config).apply)(jd.params, *(jnp.asarray(a) for a in
+                                                        (lat, cn, cond, yp)))
     assert _rel(got, want) <= 1e-4
     # and back into the port: what was written is what is read
     back = t_hub.load_pretrained(dcae_dir)

@@ -91,8 +91,22 @@ TINY = dict(in_channels=6, out_channels=6, num_attention_heads=2,
 H, W, C, E = 3, 6, 6, 3
 
 
+@pytest.fixture(scope="module")
+def tiny_models():
+    """The JAX DiT's jitted apply, its parameters (a jitted init), and the
+    port's DiT with them."""
+    jmodel = JaxDiT(j_config.LaDCastDiTConfig(**TINY, attention_impl="xla"))
+    params = jax.jit(jmodel.init)(jax.random.PRNGKey(0), jnp.zeros((1, 2, H, W, C)),
+                                  jnp.zeros((1,)), jnp.zeros((1, 1, H, W, C)),
+                                  jnp.zeros((1,)))
+    tmodel = TorchDiT(t_config.LaDCastDiTConfig(**TINY)).eval()
+    tmodel.load_state_dict(state_dict_from_flax(
+        jax.tree.map(np.asarray, params), "dit"), strict=True)
+    return jax.jit(jmodel.apply), params, tmodel
+
+
 @pytest.mark.parametrize("noise_level", [0.0, 0.3])
-def test_tiny_rollout_matches_jax_with_injected_noise(noise_level):
+def test_tiny_rollout_matches_jax_with_injected_noise(tiny_models, noise_level):
     rcfg_kw = dict(ensemble_size=E, num_inference_steps=3, return_seq_len=2,
                    input_seq_len=1, total_lead_time_hour=24, step_size_hour=6,
                    noise_level=noise_level)
@@ -100,13 +114,7 @@ def test_tiny_rollout_matches_jax_with_injected_noise(noise_level):
     t_rcfg = t_config.RolloutConfig(**rcfg_kw)
     assert t_rcfg.num_repetitions == 2
 
-    jmodel = JaxDiT(j_config.LaDCastDiTConfig(**TINY, attention_impl="xla"))
-    params = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 2, H, W, C)),
-                         jnp.zeros((1,)), jnp.zeros((1, 1, H, W, C)),
-                         jnp.zeros((1,)))
-    tmodel = TorchDiT(t_config.LaDCastDiTConfig(**TINY)).eval()
-    tmodel.load_state_dict(state_dict_from_flax(
-        jax.tree.map(np.asarray, params), "dit"), strict=True)
+    japply, params, tmodel = tiny_models
 
     rng = np.random.RandomState(0)
     known = np.broadcast_to(rng.randn(1, 1, H, W, C).astype(np.float32),
@@ -117,7 +125,7 @@ def test_tiny_rollout_matches_jax_with_injected_noise(noise_level):
     yp = np.array([0.2, 0.25], np.float32)
 
     want = np.asarray(ensemble_rollout(
-        lambda *a: jmodel.apply(params, *a), jnp.asarray(known),
+        lambda *a: japply(params, *a), jnp.asarray(known),
         jnp.asarray(yp), jax.random.PRNGKey(1), J_SCHED, j_rcfg,
         latent_std=jnp.asarray(std), rep_noise=jnp.asarray(rep_noise),
         pert_noise=jnp.asarray(pert)))

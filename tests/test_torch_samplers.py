@@ -159,14 +159,17 @@ H, W, C, E = 3, 6, 6, 3
 
 @pytest.fixture(scope="module")
 def tiny_models():
+    """The JAX DiT's jitted apply, its parameters, and the port's DiT with
+    them (jitted init and apply: one compile each, where op-by-op dispatch
+    compiles every op of the model)."""
     jmodel = JaxDiT(j_config.LaDCastDiTConfig(**TINY, attention_impl="xla"))
-    params = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 2, H, W, C)),
-                         jnp.zeros((1,)), jnp.zeros((1, 1, H, W, C)),
-                         jnp.zeros((1,)))
+    params = jax.jit(jmodel.init)(jax.random.PRNGKey(0), jnp.zeros((1, 2, H, W, C)),
+                                  jnp.zeros((1,)), jnp.zeros((1, 1, H, W, C)),
+                                  jnp.zeros((1,)))
     tmodel = TorchDiT(t_config.LaDCastDiTConfig(**TINY)).eval()
     tmodel.load_state_dict(state_dict_from_flax(
         jax.tree.map(np.asarray, params), "dit"), strict=True)
-    return jmodel, params, tmodel
+    return jax.jit(jmodel.apply), params, tmodel
 
 
 @pytest.mark.parametrize("which", ["heun_churn", "heun_skip3", "dpm_unit_scale"])
@@ -175,13 +178,13 @@ def test_samplers_on_the_tiny_dit_match_jax(tiny_models, which):
     through ``make_denoised_fn`` on both sides: churned Heun with injected
     noise, Heun with every third correction kept, and the DPM sampler from
     unscaled noise (``init_scale=1.0``, the reference's start)."""
-    jmodel, params, tmodel = tiny_models
+    japply, params, tmodel = tiny_models
     rng = np.random.RandomState(11)
     noise = rng.randn(2, 2, H, W, C).astype(np.float32)
     cond = 0.5 * rng.randn(2, 1, H, W, C).astype(np.float32)
     churn = rng.randn(5, 2, 2, H, W, C).astype(np.float32)
     yp = np.array([0.3, 0.3], np.float32)
-    j_den = j_samplers.make_denoised_fn(J_SCHED, lambda x, cn: jmodel.apply(
+    j_den = j_samplers.make_denoised_fn(J_SCHED, lambda x, cn: japply(
         params, x, jnp.broadcast_to(cn, (2,)), jnp.asarray(cond), jnp.asarray(yp)))
     t_den = t_samplers.make_denoised_fn(T_SCHED, lambda x, cn: tmodel(
         x, cn.expand(2), torch.from_numpy(cond), torch.from_numpy(yp)))
@@ -214,7 +217,7 @@ def test_ensemble_rollout_matches_jax_and_hostloop(tiny_models, sampler,
     """The single-call rollout against the JAX scanned engine (5 sampler
     steps, two repetitions, frame feedback), both samplers, with the
     initial-latent perturbation; and bit-equal to the host loop."""
-    jmodel, params, tmodel = tiny_models
+    japply, params, tmodel = tiny_models
     kw = dict(ensemble_size=E, num_inference_steps=5, return_seq_len=2,
               input_seq_len=1, total_lead_time_hour=18, step_size_hour=6,
               noise_level=noise_level, sampler_type=sampler,
@@ -230,7 +233,7 @@ def test_ensemble_rollout_matches_jax_and_hostloop(tiny_models, sampler,
     yp = np.array([0.2, 0.25], np.float32)
 
     want = np.asarray(j_engine.make_rollout_fn(
-        lambda *a: jmodel.apply(params, *a), J_SCHED, j_rcfg)(
+        lambda *a: japply(params, *a), J_SCHED, j_rcfg)(
             jnp.asarray(known), jnp.asarray(yp), jax.random.PRNGKey(1),
             latent_std=jnp.asarray(std), rep_noise=jnp.asarray(rep_noise),
             pert_noise=jnp.asarray(pert)))

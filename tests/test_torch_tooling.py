@@ -84,21 +84,57 @@ def test_device_trace_writes_a_chrome_trace(tmp_path):
 def test_compile_report():
     a, b = torch.randn(8, 16), torch.randn(16, 4)
     rep = t_prof.compile_report(torch.matmul, a, b)
-    assert set(rep) == {"first_call_s", "steady_s", "flops", "flops_complete",
-                        "uncounted"}
+    assert set(rep) == {"first_call_s", "steady_s", "flops", "kernels",
+                        "flops_complete", "uncounted"}
     assert rep["flops"] == 2 * 8 * 16 * 4
-    assert rep["flops_complete"] and rep["uncounted"] == {}
+    assert rep["flops_complete"] and rep["uncounted"] == {} and rep["kernels"] == {}
 
     def with_a_kernel(x, y):  # as a wrapper that launched a hand-written kernel
         t_fa.norm_rope.launches += 1
+        t_prof.count_kernel("norm_rope", 0)
+        t_fa.fused_attention.launches += 1
+        t_prof.count_kernel("fused_attention", 1000)
         return x @ y
 
-    before = t_fa.norm_rope.launches
+    def without_its_count(x, y):  # a launch that reports no FLOPs
+        t_fa.norm_rope.launches += 1
+        return x @ y
+
+    before = (t_fa.norm_rope.launches, t_fa.fused_attention.launches)
     try:
         rep = t_prof.compile_report(with_a_kernel, a, b)
+        # the kernels' reports count inside the report's count only
+        assert rep["flops"] == 2 * 8 * 16 * 4 + 1000
+        assert rep["kernels"] == {"norm_rope": {"launches": 1, "flops": 0},
+                                  "fused_attention": {"launches": 1, "flops": 1000}}
+        assert rep["flops_complete"] and rep["uncounted"] == {}
+        rep = t_prof.compile_report(without_its_count, a, b)
     finally:
-        t_fa.norm_rope.launches = before
+        t_fa.norm_rope.launches, t_fa.fused_attention.launches = before
     assert rep["uncounted"] == {"norm_rope": 1} and not rep["flops_complete"]
+
+
+def test_flop_counts_nest():
+    """A kernel's report reaches every open count; counts close in order."""
+    with t_prof.FlopCount() as outer:
+        t_prof.count_kernel("dense_conv", 10)
+        with t_prof.FlopCount() as inner:
+            t_prof.count_kernel("dense_conv", 5)
+    t_prof.count_kernel("dense_conv", 7)  # no count open: nothing kept
+    assert inner.total == 5 and outer.total == 15
+    assert outer.kernels == {"dense_conv": {"launches": 2, "flops": 15}}
+    # no launch counter moved, so the reports are no launches to account for
+    assert outer.uncounted == {} and inner.uncounted == {}
+
+
+def test_card_peaks():
+    """Matched on the card's name, the H100 SXM the default; TF32 at half
+    the bf16 rate, int8 at twice it."""
+    assert t_prof.card_peaks("NVIDIA H100 80GB HBM3")["bf16"] == 989e12
+    assert t_prof.card_peaks("NVIDIA H100 PCIe")["bf16"] == 756e12
+    for _, p in t_prof.CARD_PEAKS:
+        assert p["tf32"] == p["bf16"] / 2
+        assert p["int8"] == pytest.approx(2 * p["bf16"], rel=0.001)
 
 
 # -- the WB2 climatology and the download CLI ------------------------------
