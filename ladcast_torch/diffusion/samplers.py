@@ -23,6 +23,7 @@ import torch
 
 from ladcast_torch.config import EDMSchedulerConfig
 from ladcast_torch.diffusion import edm
+from ladcast_torch.utils.profiling import span
 
 DenoisedFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -104,26 +105,28 @@ def edm_heun_sample(
     n_heun = max(n - 1, 0)
     delta = torch.zeros_like(x)
     for i in range(n_heun):
-        t_next = sigmas[i + 1]
-        x_hat, t_hat = churn(x, sigmas[i], i)
-        e = denoised_fn(x_hat, t_hat)
-        d1 = (x_hat - e) / t_hat
-        x_eul = x_hat + (t_next - t_hat) * d1
-        skip = (p > 0 and correction_skip_warmup <= i < n_heun - 1
-                and (i - correction_skip_warmup) % p != 0)
-        if skip:
-            c = e + delta
-        else:
-            c = denoised_fn(x_eul, t_next)
-            if p > 0:
-                delta = c - e
-        d2 = (x_eul - c) / t_next
-        x = x_hat + (t_next - t_hat) * (0.5 * d1 + 0.5 * d2)
+        with span("sampler.step"):
+            t_next = sigmas[i + 1]
+            x_hat, t_hat = churn(x, sigmas[i], i)
+            e = denoised_fn(x_hat, t_hat)
+            d1 = (x_hat - e) / t_hat
+            x_eul = x_hat + (t_next - t_hat) * d1
+            skip = (p > 0 and correction_skip_warmup <= i < n_heun - 1
+                    and (i - correction_skip_warmup) % p != 0)
+            if skip:
+                c = e + delta
+            else:
+                c = denoised_fn(x_eul, t_next)
+                if p > 0:
+                    delta = c - e
+            d2 = (x_eul - c) / t_next
+            x = x_hat + (t_next - t_hat) * (0.5 * d1 + 0.5 * d2)
     # final step: Euler only
-    t_next = sigmas[n]
-    x, t_cur = churn(x, sigmas[n - 1], n - 1)
-    d1 = (x - denoised_fn(x, t_cur)) / t_cur
-    x = x + (t_next - t_cur) * d1
+    with span("sampler.step"):
+        t_next = sigmas[n]
+        x, t_cur = churn(x, sigmas[n - 1], n - 1)
+        d1 = (x - denoised_fn(x, t_cur)) / t_cur
+        x = x + (t_next - t_cur) * d1
     return x.float()
 
 
@@ -153,18 +156,19 @@ def dpm_multistep_sample(
     x = noise.to(dtype) * (sigmas[0] if init_scale is None else init_scale)
     m_prev = torch.zeros_like(x)
     for i in range(n):
-        s_cur, s_next = sigmas[i], sigmas[i + 1]
-        s_prev = sigmas[max(i - 1, 0)]
-        m0 = denoised_fn(x, s_cur)
-        last = i == n - 1  # sigma_next = 0: lambda_t = inf
-        ratio = torch.zeros_like(s_cur) if last else s_next / s_cur
-        lam_s0, lam_s1 = -torch.log(s_cur), -torch.log(s_prev)
-        h = torch.full_like(s_cur, float("inf")) if last else \
-            -torch.log(s_next) - lam_s0
-        em1 = -torch.ones_like(s_cur) if last else torch.exp(-h) - 1.0
-        x_new = ratio * x - em1 * m0
-        if 0 < i < n - 1:
-            r0 = (lam_s0 - lam_s1) / h
-            x_new = x_new - 0.5 * em1 * ((m0 - m_prev) / r0)
-        x, m_prev = x_new, m0
+        with span("sampler.step"):
+            s_cur, s_next = sigmas[i], sigmas[i + 1]
+            s_prev = sigmas[max(i - 1, 0)]
+            m0 = denoised_fn(x, s_cur)
+            last = i == n - 1  # sigma_next = 0: lambda_t = inf
+            ratio = torch.zeros_like(s_cur) if last else s_next / s_cur
+            lam_s0, lam_s1 = -torch.log(s_cur), -torch.log(s_prev)
+            h = torch.full_like(s_cur, float("inf")) if last else \
+                -torch.log(s_next) - lam_s0
+            em1 = -torch.ones_like(s_cur) if last else torch.exp(-h) - 1.0
+            x_new = ratio * x - em1 * m0
+            if 0 < i < n - 1:
+                r0 = (lam_s0 - lam_s1) / h
+                x_new = x_new - 0.5 * em1 * ((m0 - m_prev) / r0)
+            x, m_prev = x_new, m0
     return x.float()

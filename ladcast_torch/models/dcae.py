@@ -55,6 +55,7 @@ from ladcast_torch.ops.embeddings import timestep_embedding
 from ladcast_torch.ops.norms import rms_norm
 from ladcast_torch.ops.pixel_shuffle import pixel_shuffle, pixel_unshuffle
 from ladcast_torch.ops.sphere import kernel_convs, pack_weight, sphere_conv2d
+from ladcast_torch.utils.profiling import span, spanned
 
 
 class SphereConv(nn.Conv2d):
@@ -81,11 +82,12 @@ class SphereConv(nn.Conv2d):
 
     def forward(self, x):
         # only the kernels read the packed layout
-        packed = self._packed_weight(x.dtype) if kernel_convs() else None
-        return sphere_conv2d(
-            x, self.weight.to(x.dtype),
-            None if self.bias is None else self.bias.to(x.dtype),
-            groups=self.groups, packed=packed)
+        with span("op.dense_conv" if self.groups == 1 else "op.depthwise_conv"):
+            packed = self._packed_weight(x.dtype) if kernel_convs() else None
+            return sphere_conv2d(
+                x, self.weight.to(x.dtype),
+                None if self.bias is None else self.bias.to(x.dtype),
+                groups=self.groups, packed=packed)
 
 
 class Conv1x1(nn.Conv2d):
@@ -398,6 +400,7 @@ class AutoencoderDC(nn.Module):
         t = torch.as_tensor(time_elapsed, device=device).reshape(-1)
         return self.timestep_embedder(t)
 
+    @spanned("dcae.encode")
     def encode(self, x, static_conditioning=None, time_elapsed=None, temb=None):
         if static_conditioning is not None:
             if static_conditioning.dim() == 3:
@@ -408,6 +411,7 @@ class AutoencoderDC(nn.Module):
             temb = self._temb(time_elapsed, x.device)
         return self.encoder(x, temb)
 
+    @spanned("dcae.decode")
     def decode(self, z, return_static: bool = False, time_elapsed=None,
                temb=None):
         if temb is None:

@@ -57,6 +57,7 @@ from ladcast_torch.ops.attention import norm_rope_attention
 from ladcast_torch.ops.embeddings import timestep_embedding, year_sincos_embedding
 from ladcast_torch.ops.norms import layer_norm
 from ladcast_torch.ops.quant import QuantizableDense
+from ladcast_torch.utils.profiling import span, spanned
 
 _gelu_tanh = functools.partial(F.gelu, approximate="tanh")
 
@@ -123,6 +124,7 @@ class FeedForward(nn.Module):
         self.net = nn.ModuleList([_ProjAct(dim, inner, act, quant), nn.Identity(),
                                   QuantizableDense(inner, dim, quant=quant)])
 
+    @spanned("dit.mlp")
     def forward(self, x):
         return self.net[2](self.net[0](x))
 
@@ -187,6 +189,7 @@ class JointAttention(nn.Module):
         self.to_add_out = QuantizableDense(inner, inner, quant=int8)
         self._tables = {}
 
+    @spanned("dit.attention")
     def forward(self, x, cond, rope_table, attn_bias=None):
         n_lat, n_cond = x.shape[1], cond.shape[1]
         h = self.num_heads
@@ -224,6 +227,7 @@ class ConcatStreamAttention(nn.Module):
         self.norm_k = Affine(head_dim, bias=False)
         self._tables = {}
 
+    @spanned("dit.attention")
     def forward(self, h, n_cond, rope_table, cond_rope_table, attn_bias=None):
         n_lat = h.shape[1] - n_cond
         q = _split_heads(self.to_q(h), self.num_heads)
@@ -252,6 +256,7 @@ class SelfAttentionPreOnly(nn.Module):
         self.norm_k = Affine(head_dim, bias=False)
         self._tables = {}
 
+    @spanned("dit.attention")
     def forward(self, x, rope_table, attn_bias=None):
         n = x.shape[1]
         q = _split_heads(self.to_q(x), self.num_heads)
@@ -311,6 +316,7 @@ class RefinerBlock(nn.Module):
         self.norm2 = Affine(dim)
         self.ff = FeedForward(dim, mlp_ratio, F.silu)
 
+    @spanned("dit.refiner_block")
     def forward(self, x, temb, rope_table, attn_bias=None):
         h = layer_norm(x, self.norm1.weight, self.norm1.bias, 1e-7)
         attn_out = self.attn(h, rope_table, attn_bias)
@@ -358,6 +364,7 @@ class DualStreamBlock(nn.Module):
         self.ff = FeedForward(dim, mlp_ratio, _gelu_tanh, int8)
         self.ff_context = FeedForward(dim, mlp_ratio, _gelu_tanh, int8)
 
+    @spanned("dit.dual_block")
     def forward(self, x, cond, temb, rope_table, attn_bias=None):
         norm_x, gate_msa, shift_mlp, scale_mlp, gate_mlp = self.norm1(x, temb)
         norm_c, c_gate_msa, c_shift_mlp, c_scale_mlp, c_gate_mlp = \
@@ -384,12 +391,14 @@ class SingleStreamBlock(nn.Module):
         self.attn = ConcatStreamAttention(num_heads, head_dim, impl, int8)
         self.proj_out = QuantizableDense(dim + mlp_dim, dim, quant=int8)
 
+    @spanned("dit.single_block")
     def forward(self, x, cond, temb, rope_table, cond_rope_table,
                 attn_bias=None):
         n_cond = cond.shape[1]
         residual = torch.cat([x, cond], dim=1)
         norm_h, gate = self.norm(residual, temb)
-        mlp_h = _gelu_tanh(self.proj_mlp(norm_h))
+        with span("dit.mlp"):
+            mlp_h = _gelu_tanh(self.proj_mlp(norm_h))
         attn_out = self.attn(norm_h, n_cond, rope_table, cond_rope_table,
                              attn_bias)
         h = gate[:, None] * self.proj_out(torch.cat([attn_out, mlp_h], dim=2))
@@ -493,6 +502,7 @@ class LaDCastTransformer3D(nn.Module):
                 w, dtype=torch.float32).to(device)[None, None, None, :]
         return self._tables[key]
 
+    @spanned("dit.call")
     def forward(self, latents, c_noise, conditioning, year_progress=None):
         cfg = self.cfg
         B, T, H, W, C = latents.shape

@@ -11,6 +11,7 @@ from ladcast_torch.ops.flash_attention import (
     flash_attention,
     fused_norm_rope_attention,
 )
+from ladcast_torch.utils.profiling import spanned
 
 
 def dot_product_attention(q, k, v, bias=None, impl: str = "auto"):
@@ -35,6 +36,7 @@ def dot_product_attention(q, k, v, bias=None, impl: str = "auto"):
     return attention_composite(q, k, v, bias)
 
 
+@spanned("op.attention")
 def norm_rope_attention(q, k, v, qcos, qsin, qw, kcos, ksin, kw,
                         bias=None, impl: str = "auto",
                         norm_eps: float = 1e-7):

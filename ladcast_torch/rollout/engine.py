@@ -29,6 +29,7 @@ import torch
 from ladcast_torch.config import EDMSchedulerConfig, RolloutConfig
 from ladcast_torch.diffusion import edm
 from ladcast_torch.diffusion.samplers import dpm_multistep_sample, edm_heun_sample
+from ladcast_torch.utils.profiling import spanned
 
 # net_fn(latents (E,T,H,W,C), c_noise (E,), cond (E,Tin,H,W,C), yp (E,)) -> F
 NetFn = Callable[..., torch.Tensor]
@@ -66,6 +67,7 @@ def make_repetition_fn(sched_cfg: EDMSchedulerConfig, cfg: RolloutConfig):
         raise ValueError(f"sampler {cfg.sampler_type!r}: expected 'edm' or 'dpm'")
     traj_dtype = getattr(torch, cfg.trajectory_dtype)
 
+    @spanned("rollout.repetition")
     def rep_fn(net_fn, known, year_progress, rep_seed,
                noise: Optional[torch.Tensor] = None, member_offset: int = 0):
         E, T_in, H, W, C = known.shape

@@ -31,6 +31,7 @@ from ladcast_torch.rollout.engine import (
     ensemble_rollout_hostloop,
     make_repetition_fn,
 )
+from ladcast_torch.utils.profiling import spanned
 
 
 @dataclass
@@ -111,6 +112,7 @@ class ForecastPipeline:
     # -- stages ------------------------------------------------------------
 
     @torch.inference_mode()
+    @spanned("pipeline.encode")
     def encode_fields(self, fields: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 84) normalized fields -> (B, 15, 30, 84) physical
         latents, fp32 (the static channels are appended inside)."""
@@ -119,6 +121,7 @@ class ForecastPipeline:
                                 self.static_cond.to(cdt)).float()
 
     @torch.inference_mode()
+    @spanned("pipeline.decode")
     def decode_latents(self, latents_norm: torch.Tensor,
                        chunk: int = 40) -> torch.Tensor:
         """(E, T, 15, 30, 84) normalized latents -> (E, T, H, W, 84) fields
@@ -138,6 +141,7 @@ class ForecastPipeline:
         return dec.reshape(E, T, *dec.shape[1:])
 
     @torch.inference_mode()
+    @spanned("pipeline.forecast")
     def forecast_latents(self, known_latents_norm: torch.Tensor,
                          year_progress: Sequence[float], seed: int,
                          *, rep_noise: Optional[torch.Tensor] = None,

@@ -1,17 +1,30 @@
-"""Tracing and profiling: named wall-clock phases of a host loop, device
-traces that TensorBoard or Perfetto open, a FLOP count that includes the
-port's hand-written kernels, a report of a function's first and steady
-calls, and the peak rates of the cards the port runs on."""
+"""Tracing and profiling: spans at the layer boundaries of the port, named
+wall-clock phases of a host loop, device traces that TensorBoard or
+Perfetto open, a FLOP count that includes the port's hand-written kernels,
+a report of a function's first and steady calls, and the peak rates of the
+cards the port runs on.
+
+The spans (:func:`span`, :func:`spanned`) are off unless a
+``torch.profiler`` records: then each keeps its own record (name, parent,
+trace id, host interval, device time from CUDA events, the hand-written
+kernels it launched), which :func:`span_table` and :func:`span_records`
+read and :func:`device_trace` writes beside the profiler's events. A span
+adds nothing to the profiler's own event list, so a reduction of the
+profiler's trace sees the same events with the spans on or off."""
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import functools
 import json
 import os
 import time
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 
 def _sync_device() -> None:
@@ -20,13 +33,28 @@ def _sync_device() -> None:
         torch.cuda.synchronize()
 
 
+class Totals:
+    """Totals by name, in the order the names first came: a count and the
+    sums of the amounts given (``add(name, total_s=0.2)``); an amount of
+    None makes its sum None."""
+
+    def __init__(self):
+        self.rows: Dict[str, Dict[str, Optional[float]]] = {}
+
+    def add(self, name: str, **amounts: Optional[float]) -> None:
+        row = self.rows.setdefault(name, {"count": 0})
+        row["count"] += 1
+        for k, v in amounts.items():
+            total = row.get(k, 0)
+            row[k] = None if v is None or total is None else total + v
+
+
 class PhaseTimer:
     """Accumulating named wall-clock phases of the host; ``summary()``
     gives seconds and counts per phase."""
 
     def __init__(self):
-        self._acc: Dict[str, float] = {}
-        self._count: Dict[str, int] = {}
+        self._totals = Totals()
 
     @contextlib.contextmanager
     def phase(self, name: str, sync: bool = False):
@@ -39,20 +67,238 @@ class PhaseTimer:
         finally:
             if sync:
                 _sync_device()
-            dt = time.perf_counter() - t0
-            self._acc[name] = self._acc.get(name, 0.0) + dt
-            self._count[name] = self._count.get(name, 0) + 1
+            self._totals.add(name, total_s=time.perf_counter() - t0)
 
     def summary(self) -> Dict[str, Dict[str, float]]:
-        return {k: {"total_s": round(v, 4), "count": self._count[k]}
-                for k, v in self._acc.items()}
+        return {k: {"total_s": round(r["total_s"], 4), "count": r["count"]}
+                for k, r in self._totals.rows.items()}
 
-    def dump(self, path: Optional[str] = None) -> str:
-        s = json.dumps(self.summary(), indent=2)
-        if path:
-            with open(path, "w") as f:
-                f.write(s)
-        return s
+
+# -- spans ---------------------------------------------------------------------
+
+SPAN_PREFIX = "ladcast."
+
+
+@dataclass(slots=True)
+class SpanRecord:
+    """One span: ``name`` (with :data:`SPAN_PREFIX`), ``parent`` (the index
+    in :func:`span_records` of the innermost span open at its entry, None
+    for an outermost one), ``trace_id`` (shared by the spans of one
+    outermost call), the host's entry and exit on the wall clock
+    (``time.time_ns``, the clock of a written profiler trace; the exit None
+    while it is open), ``device_s`` (the current stream's time between the
+    entry and the exit, from a pair of CUDA events; None without CUDA or
+    until resolved) and ``launches`` (the port's hand-written kernels that
+    reported a launch (:func:`count_kernel`) while it was the innermost
+    open span, by name)."""
+
+    name: str
+    parent: Optional[int]
+    trace_id: int
+    host_start_ns: int
+    host_end_ns: Optional[int] = None
+    device_s: Optional[float] = None
+    launches: Dict[str, int] = field(default_factory=dict)
+
+    @property
+    def host_s(self) -> float:
+        return (self.host_end_ns - self.host_start_ns) / 1e9
+
+
+class SpanRecorder:
+    """The spans recorded while a profiler ran, in entry order. The CUDA
+    events come from a pool per device and go back to it once resolved:
+    when the pool runs dry with ``RESOLVE_BATCH`` more spans closed since the
+    last try, every closed span whose events the device has passed is
+    resolved, and a reader resolves the rest, waiting for them. Under a CUDA
+    profiler each CUDA call costs microseconds of host time, and the host
+    runs hundreds of spans ahead of the device, so a span makes only its two
+    event records where it can."""
+
+    RESOLVE_BATCH = 256
+
+    def __init__(self):
+        self.records: List[SpanRecord] = []
+        self._open: List[int] = []  # indices in records, innermost last
+        self._unresolved = collections.deque()  # (record, start, end, device), closing order
+        self._pools: Dict[int, list] = {}
+        self._traces = 0
+        self._closed = self._next_try = 0  # spans closed; when to try resolving
+        self._stream_key, self._stream = None, None
+
+    def _current_stream(self):
+        """``torch.cuda.current_stream()``, built again only when the
+        current stream changes."""
+        key = torch._C._cuda_getCurrentStream(torch.cuda.current_device())
+        if key != self._stream_key:
+            self._stream_key, self._stream = key, torch.cuda.current_stream()
+        return self._stream
+
+    def enter(self, name: str):
+        """Open a span; returns what :meth:`exit` takes."""
+        parent = self._open[-1] if self._open else None
+        if parent is None:
+            self._traces += 1
+        rec = SpanRecord(SPAN_PREFIX + name, parent, self._traces, time.time_ns())
+        self._open.append(len(self.records))
+        self.records.append(rec)
+        timing = None
+        if torch.cuda.is_initialized():
+            stream = self._current_stream()
+            device = self._stream_key[1]
+            pool = self._pools.setdefault(device, [])
+            if not pool and self._closed >= self._next_try:
+                self._next_try = self._closed + self.RESOLVE_BATCH
+                self.resolve(wait=False)
+            start, end = pool.pop() if pool else (torch.cuda.Event(enable_timing=True),
+                                                  torch.cuda.Event(enable_timing=True))
+            start.record(stream)
+            timing = (stream, start, end, device)
+        return len(self.records) - 1, rec, timing
+
+    def exit(self, entered) -> None:
+        index, rec, timing = entered
+        if timing is not None:
+            stream, start, end, device = timing
+            end.record(stream)
+            self._unresolved.append((rec, start, end, device))
+            self._closed += 1
+        rec.host_end_ns = time.time_ns()
+        if self._open and self._open[-1] == index:
+            self._open.pop()
+        elif index in self._open:  # not if the record was reset meanwhile
+            del self._open[self._open.index(index):]
+
+    def count_launch(self, kernel: str) -> None:
+        if self._open:
+            launches = self.records[self._open[-1]].launches
+            launches[kernel] = launches.get(kernel, 0) + 1
+
+    def resolve(self, wait: bool) -> None:
+        """Give the closed spans their device time, in closing order: all of
+        them with ``wait``, else up to the first the device has not passed."""
+        while self._unresolved:
+            rec, start, end, device = self._unresolved[0]
+            if wait:
+                end.synchronize()
+            elif not end.query():
+                return
+            rec.device_s = start.elapsed_time(end) / 1e3
+            self._unresolved.popleft()
+            self._pools.setdefault(device, []).append((start, end))
+
+    def reset(self) -> None:
+        self.resolve(wait=True)  # return the events to their pools
+        self.records, self._open = [], []
+        self._closed = self._next_try = 0
+
+
+_RECORDER = SpanRecorder()
+
+
+class _NoSpan:
+    """What :func:`span` returns while no profiler records."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+class _Span:
+    __slots__ = ("_name", "_entered")
+
+    def __init__(self, name: str):
+        self._name = name
+
+    def __enter__(self):
+        self._entered = _RECORDER.enter(self._name)
+        return None
+
+    def __exit__(self, *exc):
+        _RECORDER.exit(self._entered)
+        return False
+
+
+def span(name: str):
+    """A span named ``ladcast.<name>`` around the block while a
+    ``torch.profiler`` records; otherwise a shared object that does
+    nothing (one check of the profiler's flag, no allocation, no CUDA
+    call)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return _Span(name)
+
+
+def spanned(name: str):
+    """Decorate a function so that each call is a :func:`span`."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            if not _autograd_profiler._is_profiler_enabled:
+                return fn(*args, **kwargs)
+            with _Span(name):
+                return fn(*args, **kwargs)
+
+        return inner
+
+    return wrap
+
+
+def span_records() -> List[SpanRecord]:
+    """Every span recorded since :func:`reset_spans`, in entry order, each
+    closed one with its device time (this waits for the device)."""
+    _RECORDER.resolve(wait=True)
+    return list(_RECORDER.records)
+
+
+def span_table() -> Dict[str, Dict[str, Optional[float]]]:
+    """The closed spans by name: ``count``, ``host_s``, ``device_s``,
+    ``self_device_s`` (``device_s`` less that of the spans' children) and
+    ``launches`` (of the port's kernels, launched in no child span). The two
+    device times are None where a span of the name has none."""
+    recs = span_records()
+    children_s = [0.0] * len(recs)
+    for r in recs:
+        if r.parent is not None and r.device_s is not None and r.host_end_ns is not None:
+            children_s[r.parent] += r.device_s
+    totals = Totals()
+    for i, r in enumerate(recs):
+        if r.host_end_ns is not None:
+            totals.add(r.name, host_s=r.host_s, device_s=r.device_s,
+                       self_device_s=None if r.device_s is None else r.device_s - children_s[i],
+                       launches=sum(r.launches.values()))
+    return totals.rows
+
+
+def reset_spans() -> None:
+    """Forget every span recorded so far."""
+    _RECORDER.reset()
+
+
+def _span_trace_events(base_ns: int) -> List[dict]:
+    """The closed spans as Chrome-trace events of their own track (host
+    intervals, us from ``base_ns``), with their device times as arguments."""
+    pid = 0x1ADCA5  # a track apart from the profiler's processes
+    events = [{"ph": "M", "name": "process_name", "pid": pid, "tid": 0,
+               "args": {"name": "ladcast spans"}}]
+    for i, r in enumerate(span_records()):
+        if r.host_end_ns is None:
+            continue
+        events.append({"ph": "X", "cat": "ladcast_span", "name": r.name, "pid": pid,
+                       "tid": 0, "ts": (r.host_start_ns - base_ns) / 1e3,
+                       "dur": (r.host_end_ns - r.host_start_ns) / 1e3,
+                       "args": {"index": i, "parent": r.parent, "trace_id": r.trace_id,
+                                "device_ms": None if r.device_s is None else r.device_s * 1e3,
+                                "launches": r.launches}})
+    return events
 
 
 @contextlib.contextmanager
@@ -61,7 +307,10 @@ def device_trace(log_dir: str):
     where CUDA is available) and write it on exit as a Chrome-trace JSON,
     ``<log_dir>/trace.json``, which Perfetto and TensorBoard open. Kernels
     launched through ctypes (the port's) are recorded by CUPTI like any
-    other. Yields the profiler, whose ``events()`` the caller may read."""
+    other. The block's spans (:func:`span`; the record is emptied on entry)
+    are one more track of the file, on the same clock, and stay readable by
+    :func:`span_table` afterwards. Yields the profiler, whose ``events()``
+    the caller may read."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -69,10 +318,18 @@ def device_trace(log_dir: str):
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
     _sync_device()
+    reset_spans()
     with profile(activities=activities) as prof:
         yield prof
         _sync_device()
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    path = os.path.join(log_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    if _RECORDER.records:
+        with open(path) as f:
+            trace = json.load(f)
+        trace["traceEvents"] += _span_trace_events(int(trace.get("baseTimeNanoseconds", 0)))
+        with open(path, "w") as f:
+            json.dump(trace, f)
 
 
 # -- FLOP counts that include the port's kernels ------------------------------
@@ -89,11 +346,13 @@ def count_kernel(name: str, flops: int) -> None:
     for the kernel's plain version at the same shapes. The kernels launch
     through ctypes, so ``FlopCounterMode`` does not see them; it sees the
     plain versions' aten ops instead where those run (on the CPU), and there
-    no wrapper reports, so nothing is counted twice."""
+    no wrapper reports, so nothing is counted twice. The launch also counts
+    in the innermost open span (:func:`span`)."""
     for counts in _OPEN_COUNTS:
         c = counts.setdefault(name, [0, 0])
         c[0] += 1
         c[1] += flops
+    _RECORDER.count_launch(name)
 
 
 def kernel_entries() -> Dict:

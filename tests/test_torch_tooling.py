@@ -57,7 +57,7 @@ def _two_torch_threads():
 
 # -- profiling ---------------------------------------------------------------
 
-def test_phase_timer_with_sync(tmp_path):
+def test_phase_timer_with_sync():
     timer = t_prof.PhaseTimer()
     for _ in range(2):
         with timer.phase("a", sync=True):
@@ -66,9 +66,9 @@ def test_phase_timer_with_sync(tmp_path):
         pass
     s = timer.summary()
     assert list(s) == ["a", "b"] and s["a"]["count"] == 2 and s["b"]["count"] == 1
-    assert s["a"]["total_s"] >= 0
-    assert json.loads(timer.dump(str(tmp_path / "t.json"))) == s
-    assert json.loads((tmp_path / "t.json").read_text()) == s
+    assert s["a"]["total_s"] >= 0 and s["b"]["total_s"] >= 0
+    assert all(list(v) == ["total_s", "count"] for v in s.values())
+    json.dumps(s)  # what the trainers log
 
 
 def test_device_trace_writes_a_chrome_trace(tmp_path):
