@@ -311,6 +311,15 @@ K6_REL_L2 = {"bfloat16": 5e-4, "float32": 2e-6}
 # which the general 1e-4 passes. On the card wgmma's coarser accumulation
 # adds to the faithful error (K6: 1.0e-6 against its emulation's 5.9e-7).
 F32_REL_L2 = {"fused_attention": 3e-6, "flash_bwd_dq": 3e-6, "flash_bwd_dkv": 3e-6}
+# K7 (the DiT block glue) keeps every intermediate in fp32 and rounds once,
+# as its plain version does, so the two differ by the order of a row's fp32
+# sums and the last bits of 1/sqrt: bf16 results straddling a rounding
+# boundary, fp32 ones in their last bits. In the emulation of its row loop
+# at (3, 13, 264) (tests/test_torch_adaln_glue.py) the faithful loop reads
+# relative L2 5e-10 (bf16) and 6e-8 (fp32); the subtlest fault, LayerNorm's
+# unbiased variance (a 1/(2D) change), 3.1e-3 and 1.7e-3; the others 0.07
+# to 0.8. Its bf16 atol is CONV_BF16_ULPS bf16 ulps at the output's RMS.
+GLUE_REL_L2 = {"bfloat16": 5e-4, "float32": 1e-6}
 MODEL_TOL = {"bfloat16": 2e-2, "float32": 1e-3}  # relative L2, 375M forward
 GRAD_TOL = {"bfloat16": 2e-2, "float32": 1e-3}  # relative L2, 375M gradients
 DCAE_TOL = {"bfloat16": 2e-2, "float32": 1e-3}  # relative L2, kernel vs library convs
@@ -494,12 +503,13 @@ def kernel_tolerance(kernel, dtype_name, ref):
     if kernel == "fused_attention_lse":  # fp32 logsumexp rows, |lse| ~ 8
         return {"atol": LSE_ATOL[dtype_name], "rtol": 0.0,
                 "rel_l2": REL_L2["float32"]}
-    rel_l2 = (K6_REL_L2 if kernel == "flash_attention" else REL_L2)[dtype_name]
+    rel_l2 = {"flash_attention": K6_REL_L2, "adaln_glue": GLUE_REL_L2}.get(
+        kernel, REL_L2)[dtype_name]
     if dtype_name == "float32":
         return {"atol": 1e-4, "rtol": 0.0, "rel_l2": F32_REL_L2.get(kernel, rel_l2)}
     if kernel == "norm_rope":
         atol = 2e-2
-    elif kernel in ("dense_conv", "depthwise_conv"):
+    elif kernel in ("dense_conv", "depthwise_conv", "adaln_glue"):
         atol = CONV_BF16_ULPS * bf16_ulp(ref.float().square().mean().sqrt().item())
     else:
         atol = ATTN_BF16_ULPS * bf16_ulp(ref.float().abs().max().item())
@@ -637,7 +647,104 @@ def kernel_phase(peaks, dtypes=("bfloat16", "float32"), only=None):
                 raise AssertionError(f"fused_attention {name} {dname}: {rec}")
             del q, k, v, kn, out, ref
         torch.cuda.empty_cache()
+    results["adaln_glue"] = glue_phase(peaks, dtypes, only)
     return results
+
+
+# K7's cases: name, B, S, D, the token count of the tensor x is a view of
+# (the head's input is the latent part of the joint stream), timed
+GLUE_CASES = [
+    ("latent_1800", 20, 1800, 1536, 1800, True),
+    ("cond_450", 20, 450, 1536, 450, False),
+    ("joint_2250_1p6b", 20, 2250, 2048, 2250, True),
+    ("head_1800_of_2250", 20, 1800, 1536, 2250, False),
+    ("ragged_13", 3, 13, 256, 13, False),
+]
+
+
+def glue_per_dit_call(cfg):
+    """K7's launches per DiT call without grad, by entry: each dual-stream
+    block two streams x (ln_modulate, gated_residual_ln_modulate,
+    gated_residual), each single-stream block ln_modulate and
+    gated_residual, the head ln_modulate."""
+    L, Ls = cfg.num_layers, cfg.num_single_layers
+    return {"ln_modulate": 2 * L + Ls + 1, "gated_residual_ln_modulate": 2 * L,
+            "gated_residual": 2 * L + Ls}
+
+
+def glue_phase(peaks, dtypes=("bfloat16", "float32"), only=None):
+    """K7's three entries against their plain versions at the DiT's
+    shapes, in ``dtypes``, at every case of GLUE_CASES or those named in
+    ``only``; the timed cases beside the plain version and the unfused
+    PyTorch chain the blocks ran before (``library_ms``), with the bound:
+    each input byte read once, each output written once, at HBM's rate."""
+    import torch
+
+    from ladcast_torch.models.ladcast_dit import _modulate
+    from ladcast_torch.ops import adaln_glue as glue
+    from ladcast_torch.ops.norms import layer_norm
+
+    dev = torch.device("cuda")
+    bw = peaks[2]
+    g = torch.Generator(device=dev).manual_seed(7)
+    eps = 1e-6
+    recs = []
+    for dtype in (getattr(torch, d) for d in dtypes):
+        dname = str(dtype).split(".")[-1]
+        for name, B, S, D, S_of, timed in (c for c in GLUE_CASES
+                                           if only is None or c[0] in only):
+            x = (torch.randn(B, S_of, D, generator=g, device=dev) * 2 + 0.5).to(dtype)[:, :S]
+            y = torch.randn(B, S, D, generator=g, device=dev).to(dtype)
+            # chunk views of one AdaLN output, as the blocks pass them
+            gate, shift, scale = (0.5 * torch.randn(B, 3 * D, generator=g, device=dev)
+                                  ).to(dtype).chunk(3, -1)
+            unfused = {
+                "ln_modulate": lambda: _modulate(layer_norm(x, None, None, eps),
+                                                 shift, scale),
+                "gated_residual_ln_modulate": lambda: _modulate(
+                    layer_norm(x + y * gate[:, None], None, None, eps), shift, scale),
+                "gated_residual": lambda: x + y * gate[:, None]}
+            runs = {  # entry, plain version, passes over (B, S, D), (B, D) rows read
+                "ln_modulate": (lambda: glue.ln_modulate(x, shift, scale, eps),
+                                lambda: glue.ln_modulate_plain(x, shift, scale, eps), 2, 2),
+                "gated_residual_ln_modulate": (
+                    lambda: glue.gated_residual_ln_modulate(x, y, gate, shift, scale, eps),
+                    lambda: glue.gated_residual_ln_modulate_plain(x, y, gate, shift,
+                                                                 scale, eps), 4, 3),
+                "gated_residual": (lambda: glue.gated_residual(x, y, gate),
+                                   lambda: glue.gated_residual_plain(x, y, gate), 3, 1)}
+            for entry, (kern, plain, passes, n_rows) in runs.items():
+                before = getattr(glue, entry).launches
+                outs, refs = kern(), plain()
+                outs = outs if isinstance(outs, tuple) else (outs,)
+                refs = refs if isinstance(refs, tuple) else (refs,)
+                checks = [compare(o, r, kernel_tolerance("adaln_glue", dname, r))
+                          for o, r in zip(outs, refs)]
+                rec = {"phase": "kernel", "kernel": "adaln_glue", "entry": entry,
+                       "case": name, "dtype": dname, "B": B, "S": S, "D": D,
+                       "x_token_count": S_of,
+                       "launches": getattr(glue, entry).launches - before,
+                       "outputs": checks, "ok": all(c["ok"] for c in checks),
+                       "max_abs_err": max(c["max_abs_err"] for c in checks),
+                       "finite": all(bool(torch.isfinite(o).all()) for o in outs)}
+                es = x.element_size()
+                rec.update(bound_ms=(passes * B * S * D + n_rows * B * D) * es / bw * 1e3,
+                           bound_by="bytes")
+                if timed:
+                    rec["ms"] = time_ms(kern)
+                    rec["plain_ms"] = time_ms(plain, inner=1)
+                    rec["library_ms"] = time_ms(unfused[entry], inner=1)
+                    rec["library_op"] = "the blocks' unfused PyTorch chain"
+                    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+                    rec["tb_per_s"] = rec["bound_ms"] * bw / 1e12 / rec["ms"]
+                emit(rec)
+                recs.append(rec)
+                if not (rec["ok"] and rec["finite"] and rec["launches"] == 1):
+                    raise AssertionError(f"adaln_glue {entry} {name} {dname}: {rec}")
+                del outs, refs
+            del x, y, gate, shift, scale
+        torch.cuda.empty_cache()
+    return recs
 
 
 @contextlib.contextmanager
@@ -1677,8 +1784,9 @@ def dit_1p6b_phase(tmp, latents):
     plain.load_state_dict(model.state_dict(), strict=True, assign=True)
     plain.eval()
     x2, x20 = inputs(2), inputs(20)
+    p = plain_dit_call(plain, *x2)
     with torch.inference_mode():
-        a, p = model(*x2).float(), plain(*x2).float()
+        a = model(*x2).float()
         rel = ((a - p).norm() / p.norm()).item()
         _reset_launches(fa)
         out = model(*x20)
@@ -1755,11 +1863,29 @@ def dit_1p6b_phase(tmp, latents):
     return rec
 
 
+def plain_dit_call(plain, *args):
+    """The DiT ``plain`` (attention_impl "plain") on ``args``, with grad on:
+    its parameters require grad, so its blocks run the PyTorch expressions
+    in place of K7, the side without the kernels of a parity check.
+    Raises if K7 launched."""
+    import torch
+
+    from ladcast_torch.ops import adaln_glue as glue
+
+    n0 = glue.launches()
+    with torch.enable_grad():
+        out = plain(*args).detach().float()
+    if glue.launches() != n0:
+        raise AssertionError("the plain DiT launched K7")
+    return out
+
+
 def model_parity_phase():
     import torch
 
     from ladcast_torch.config import ladcast_375m_config
     from ladcast_torch.models.ladcast_dit import LaDCastTransformer3D, build_dit
+    from ladcast_torch.ops import adaln_glue as glue
 
     dev = torch.device("cuda")
     cfg = ladcast_375m_config()
@@ -1775,14 +1901,19 @@ def model_parity_phase():
             plain = LaDCastTransformer3D(dataclasses.replace(cfg, attention_impl="plain"))
         plain.load_state_dict(kernels.state_dict(), strict=True, assign=True)
         plain.eval()
+        args = (lat.to(dtype), cn, cond.to(dtype), yp)
+        n0 = glue.launches()
         with torch.inference_mode():
-            a = kernels(lat.to(dtype), cn, cond.to(dtype), yp).float()
-            p = plain(lat.to(dtype), cn, cond.to(dtype), yp).float()
+            a = kernels(*args).float()
+        glue_launches = glue.launches() - n0
+        p = plain_dit_call(plain, *args)
         rel = ((a - p).norm() / p.norm()).item()
         finite = bool(torch.isfinite(a).all())
+        want = sum(glue_per_dit_call(cfg).values())
         emit({"phase": "model_parity", "dtype": dname, "B": 2,
-              "rel_l2": rel, "tol": MODEL_TOL[dname], "finite": finite})
-        if not (finite and rel <= MODEL_TOL[dname]):
+              "rel_l2": rel, "tol": MODEL_TOL[dname], "finite": finite,
+              "glue_launches": glue_launches, "expected_glue_launches": want})
+        if not (finite and rel <= MODEL_TOL[dname] and glue_launches == want):
             raise AssertionError(f"375M forward parity {dname}: {rel}")
         del kernels, plain, a, p
         torch.cuda.empty_cache()
@@ -1798,6 +1929,7 @@ def main_path_phase(reps):
         RolloutConfig,
         ladcast_375m_config,
     )
+    from ladcast_torch.ops import adaln_glue as glue
     from ladcast_torch.ops import flash_attention as fa
 
     dev = torch.device("cuda")
@@ -1821,6 +1953,8 @@ def main_path_phase(reps):
     fa.norm_rope.launches = 0
     fa.fused_attention.launches = 0
     _reset_conv_launches()
+    for entry in glue.ENTRIES:
+        entry.launches = 0
     torch.cuda.reset_peak_memory_stats()
     stats = {}
     t0 = time.perf_counter()
@@ -1828,12 +1962,14 @@ def main_path_phase(reps):
     total_s = time.perf_counter() - t0
     launches = {"norm_rope": fa.norm_rope.launches,
                 "fused_attention": fa.fused_attention.launches,
-                **_conv_launches()}
-    n_attn = 7 * (2 * rcfg.num_inference_steps - 1) * rcfg.num_repetitions
+                **_conv_launches(), "adaln_glue": glue.launches()}
+    n_calls = (2 * rcfg.num_inference_steps - 1) * rcfg.num_repetitions
+    n_attn = 7 * n_calls
     enc = sphere_conv_counts(bench["dcae"].encoder)
     dec = sphere_conv_counts(bench["dcae"].decoder)
     expected = {"norm_rope": n_attn, "fused_attention": n_attn,
-                **{k: enc[k] + rcfg.num_repetitions * dec[k] for k in enc}}
+                **{k: enc[k] + rcfg.num_repetitions * dec[k] for k in enc},
+                "adaln_glue": n_calls * sum(glue_per_dit_call(ladcast_375m_config()).values())}
     # the decode of one repetition's 80 frames under both conv modes
     frames = torch.randn(80, 15, 30, 84, device=dev,
                          generator=torch.Generator(device=dev).manual_seed(1)
@@ -1951,7 +2087,8 @@ def bench_phase(tmp, bench, reps):
     enc = sphere_conv_counts(bench["dcae"].encoder)
     dec = sphere_conv_counts(bench["dcae"].decoder)
     expected = {"norm_rope": 7 * 2 * 10, "fused_attention": 7 * 2 * 10,
-                **{k: enc[k] + 10 * dec[k] for k in enc}}
+                **{k: enc[k] + 10 * dec[k] for k in enc},
+                **{k: n * 2 * 10 for k, n in glue_per_dit_call(ladcast_375m_config()).items()}}
     dpm2 = RolloutConfig(sampler_type="dpm", num_inference_steps=2)
     rec = {"phase": "bench_cli_short", "card": card,
            "argv": ["--sampler", "dpm", "--nfe", "2", "--profile", "DIR",
@@ -2001,7 +2138,8 @@ def bench_phase(tmp, bench, reps):
     emit(rec)
     if (on_card.uncounted or rel > 1e-6 or on_card.total != comps[0]
             or {k: v["launches"] for k, v in on_card.kernels.items()}
-            != {"norm_rope": 7, "fused_attention": 7}
+            != {"norm_rope": 7, "fused_attention": 7,
+                **glue_per_dit_call(ladcast_375m_config())}
             or on_card.kernels["norm_rope"]["flops"] != 0):
         raise AssertionError(f"the FLOP count of a DiT call: {rec}")
     results["flop_count"] = rec
@@ -2807,7 +2945,8 @@ def tooling_phase(tmp, forecast, device="cuda", dit_cfg=None, ray_cfg=None,
     report = profiling.compile_report(call)
     rec = {"phase": "tooling_compile_report", "B": batch, "dtype": str(dt),
            "kernels_built_before": cuda, **report,
-           "expected_kernel_launches": {"norm_rope": 7, "fused_attention": 7} if cuda else {}}
+           "expected_kernel_launches": ({"norm_rope": 7, "fused_attention": 7,
+                                         **glue_per_dit_call(cfg)} if cuda else {})}
     emit(rec)
     if (set(report) != {"first_call_s", "steady_s", "flops", "kernels", "flops_complete",
                         "uncounted"}
@@ -3707,6 +3846,7 @@ CATEGORIES = [("fused_attention", ("fa_bf16_wgmma_kernel", "fa_f32_wgmma_kernel"
                              "bwd_dq_f32_wgmma_kernel", "bwd_dkv_f32_wgmma_kernel",
                              "bwd_f32_split_kernel")),
               ("norm_rope", ("norm_rope_kernel",)),
+              ("adaln_glue (K7)", ("adaln_glue_kernel",)),
               ("flash_plain (K6)", ("fa_plain_wgmma_kernel", "fa_plain_split_kernel")),
               ("dense_conv (K4)", ("conv_bf16_wgmma_kernel", "conv_f32_wgmma_kernel")),
               ("depthwise_conv (K5)", ("dw_rows_kernel",)),
@@ -3827,9 +3967,15 @@ def main():
     # no mma.sync, no spills and no note of ptxas's (a serialised wgmma)
     reports = {}
     for lib in ("fused_attention", "flash_bwd", "dense_conv", "depthwise_conv",
-                "flash_plain"):
+                "flash_plain", "adaln_glue"):
         reports[lib] = kernel_report(lib)
         emit({"phase": "kernel_build", "library": lib, "kernels": reports[lib]})
+    # K7 holds a row in registers: its bf16 instances (the forecast's) may not
+    # spill; the fp32 ones are reported only (the 2048-wide fp32 gated
+    # residual spills 8 bytes at 96 registers)
+    k7 = {k: v for k, v in reports["adaln_glue"].items() if "bfloat16" in k}
+    if not k7 or not all(map(clean_build, k7.values())):
+        raise AssertionError(f"adaln_glue_kernel as built: {k7}")
     # K1 and K3 in both dtypes must be the Hopper kernels: wgmma, TMA loads
     # (their fp32 split passes are reported only)
     for lib, kname in (("fused_attention", "fa_bf16_wgmma_kernel"),
@@ -4093,6 +4239,18 @@ def main():
     e = entry("flash_attention", results["flash_attention"], k6_launches, "s2250")
     e["batch"] = 2
     summary.append(e)
+    # K7 on the main path (the 375M), its timed cases by entry and dtype
+    from ladcast_torch.config import ladcast_375m_config
+
+    glue_recs = results["adaln_glue"]
+    summary.append({
+        "name": "adaln_glue", "route": "cuda", "source": "ladcast_torch/csrc/adaln_glue.cu",
+        "replaces": "no TPU kernel (XLA fuses the glue)", "launches": launches["adaln_glue"],
+        "launches_per_dit_call": glue_per_dit_call(ladcast_375m_config()),
+        "max_abs_err": max(r["max_abs_err"] for r in glue_recs),
+        "timed_cases": {f"{r['entry']} {r['case']} {r['dtype']}": {
+            k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_share",
+                              "tb_per_s")} for r in glue_recs if "ms" in r}})
     print(card, flush=True)
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -28,7 +28,9 @@ as int8 products (``ops.quant.QuantizableDense``): the dual-stream
 blocks' q/k/v, added q/k/v, output projections and both feed-forwards,
 the single-stream blocks' q/k/v, ``proj_mlp`` and ``proj_out``; the
 refiner, the AdaLN linears, the embedders and the top-level projections
-stay in float.
+stay in float. Where no input needs a gradient, the dual- and
+single-stream blocks' and the head's LayerNorms, modulations, gates and
+residual adds run as one pass per step (``ops.adaln_glue``, K7).
 """
 
 from __future__ import annotations
@@ -52,6 +54,7 @@ from ladcast_torch.models.layers import (
     dense,
     init_flax_defaults_,
 )
+from ladcast_torch.ops import adaln_glue as glue
 from ladcast_torch.ops import rope as rope_ops
 from ladcast_torch.ops.attention import norm_rope_attention
 from ladcast_torch.ops.embeddings import timestep_embedding, year_sincos_embedding
@@ -279,6 +282,34 @@ def _modulate(x, shift, scale):
     return x * (1 + scale[:, None]) + shift[:, None]
 
 
+# The glue between a block's attention and MLPs. Where no input needs a
+# gradient (inference) each step is one pass over its rows: K7 on CUDA
+# tensors (which raises where it cannot take them), its plain version on
+# bf16 or fp32 CPU tensors (ops.adaln_glue); with grad on, the expressions
+# autograd differentiates.
+
+def _ln_modulate(x, shift, scale, eps):
+    """``LN(x; eps)`` modulated by ``shift`` and ``scale``."""
+    if glue.applies((x,), (shift, scale)):
+        return glue.ln_modulate(x, shift, scale, eps)
+    return _modulate(layer_norm(x, None, None, eps), shift, scale)
+
+
+def _gated_residual_ln_modulate(x, y, gate, shift, scale, eps):
+    """``x + y * gate`` and its LN modulated by ``shift`` and ``scale``."""
+    if glue.applies((x, y), (gate, shift, scale)):
+        return glue.gated_residual_ln_modulate(x, y, gate, shift, scale, eps)
+    x = x + y * gate[:, None]
+    return x, _modulate(layer_norm(x, None, None, eps), shift, scale)
+
+
+def _gated_residual(x, y, gate):
+    """``x + y * gate``."""
+    if glue.applies((x, y), (gate,)):
+        return glue.gated_residual(x, y, gate)
+    return x + y * gate[:, None]
+
+
 class AdaLayerNormZero(nn.Module):
     """SiLU -> Linear(6*dim); LN (eps 1e-6, no affine) modulated."""
 
@@ -289,7 +320,7 @@ class AdaLayerNormZero(nn.Module):
     def forward(self, x, temb):
         (shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp,
          gate_mlp) = self.linear(F.silu(temb)).chunk(6, dim=-1)
-        h = _modulate(layer_norm(x, None, None, 1e-6), shift_msa, scale_msa)
+        h = _ln_modulate(x, shift_msa, scale_msa, 1e-6)
         return h, gate_msa, shift_mlp, scale_mlp, gate_mlp
 
 
@@ -302,7 +333,7 @@ class AdaLayerNormZeroSingle(nn.Module):
 
     def forward(self, x, temb):
         shift_msa, scale_msa, gate = self.linear(F.silu(temb)).chunk(3, dim=-1)
-        return _modulate(layer_norm(x, None, None, 1e-6), shift_msa, scale_msa), gate
+        return _ln_modulate(x, shift_msa, scale_msa, 1e-6), gate
 
 
 class RefinerBlock(nn.Module):
@@ -370,13 +401,12 @@ class DualStreamBlock(nn.Module):
         norm_c, c_gate_msa, c_shift_mlp, c_scale_mlp, c_gate_mlp = \
             self.norm1_context(cond, temb)
         attn_x, attn_c = self.attn(norm_x, norm_c, rope_table, attn_bias)
-        x = x + attn_x * gate_msa[:, None]
-        cond = cond + attn_c * c_gate_msa[:, None]
-        nx = _modulate(layer_norm(x, None, None, 1e-7), shift_mlp, scale_mlp)
-        nc = _modulate(layer_norm(cond, None, None, 1e-7), c_shift_mlp,
-                       c_scale_mlp)
-        x = x + self.ff(nx) * gate_mlp[:, None]
-        cond = cond + self.ff_context(nc) * c_gate_mlp[:, None]
+        x, nx = _gated_residual_ln_modulate(x, attn_x, gate_msa, shift_mlp,
+                                            scale_mlp, 1e-7)
+        cond, nc = _gated_residual_ln_modulate(cond, attn_c, c_gate_msa,
+                                               c_shift_mlp, c_scale_mlp, 1e-7)
+        x = _gated_residual(x, self.ff(nx), gate_mlp)
+        cond = _gated_residual(cond, self.ff_context(nc), c_gate_mlp)
         return x, cond
 
 
@@ -401,8 +431,8 @@ class SingleStreamBlock(nn.Module):
             mlp_h = _gelu_tanh(self.proj_mlp(norm_h))
         attn_out = self.attn(norm_h, n_cond, rope_table, cond_rope_table,
                              attn_bias)
-        h = gate[:, None] * self.proj_out(torch.cat([attn_out, mlp_h], dim=2))
-        h = h + residual
+        h = _gated_residual(residual,
+                            self.proj_out(torch.cat([attn_out, mlp_h], dim=2)), gate)
         return h[:, :-n_cond], h[:, -n_cond:]
 
 
@@ -546,7 +576,7 @@ class LaDCastTransformer3D(nn.Module):
                        else block(*args))
 
         scale, shift = self.norm_out(temb.to(latents.dtype)).chunk(2, dim=-1)
-        x = _modulate(layer_norm(x, None, None, 1e-7), shift, scale)
+        x = _ln_modulate(x, shift, scale, 1e-7)
         x = self.proj_out(x)
         return x.reshape(B, T, H, W, cfg.out_channels)
 

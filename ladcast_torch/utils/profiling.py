@@ -190,7 +190,7 @@ class SpanRecorder:
     def reset(self) -> None:
         self.resolve(wait=True)  # return the events to their pools
         self.records, self._open = [], []
-        self._closed = self._next_try = 0
+        self._traces = self._closed = self._next_try = 0
 
 
 _RECORDER = SpanRecorder()
@@ -279,7 +279,7 @@ def span_table() -> Dict[str, Dict[str, Optional[float]]]:
 
 
 def reset_spans() -> None:
-    """Forget every span recorded so far."""
+    """Forget every span recorded so far; trace ids start again at 1."""
     _RECORDER.reset()
 
 
@@ -358,7 +358,7 @@ def count_kernel(name: str, flops: int) -> None:
 def kernel_entries() -> Dict:
     """The port's kernel entry points by the names they report under; each
     keeps a ``launches`` counter."""
-    from ladcast_torch.ops import dense_conv, depthwise_conv, flash_attention, quant
+    from ladcast_torch.ops import adaln_glue, dense_conv, depthwise_conv, flash_attention, quant
 
     return {"norm_rope": flash_attention.norm_rope,
             "fused_attention": flash_attention.fused_attention,
@@ -367,7 +367,8 @@ def kernel_entries() -> Dict:
             "flash_attention": flash_attention.flash_attention_forward,
             "dense_conv": dense_conv.dense_conv_forward,
             "depthwise_conv": depthwise_conv.depthwise_same_conv_forward,
-            "int8_mm": quant.int8_mm}
+            "int8_mm": quant.int8_mm,
+            **{f.__name__: f for f in adaln_glue.ENTRIES}}
 
 
 class FlopCount:

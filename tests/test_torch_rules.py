@@ -41,17 +41,21 @@ def test_port_imports_no_jax(path):
 
 
 def test_kernel_sources_ship_with_the_package():
+    """Each source names the TPU kernel it replaces, or says it replaces
+    none (K7, the block glue, which XLA fuses on the TPU)."""
     srcs = _build.sources()
     replaces = {"norm_rope": "flash_attention.py:70",
                 "fused_attention": "flash_attention.py:113",
                 "flash_bwd": "flash_attention.py:279",
                 "flash_plain": "flash_attention.py:601",
                 "dense_conv": "dense_conv.py:83",
-                "depthwise_conv": "depthwise_conv.py:101"}
+                "depthwise_conv": "depthwise_conv.py:101",
+                "adaln_glue": None}
     assert set(srcs) == set(replaces)
     for name, src in srcs.items():
         text = src.read_text()
-        assert f"Replaces: ladcast_tpu/ops/pallas/{replaces[name]}" in text
+        assert (f"Replaces: ladcast_tpu/ops/pallas/{replaces[name]}" if replaces[name]
+                else "Replaces: no TPU kernel") in text
         assert "Bound on an H100" in text
         assert 'extern "C" int' in text and "cudaGetLastError()" in text
 
@@ -85,7 +89,8 @@ def test_profile_categories_name_every_kernel():
 
     own = {"norm_rope": "norm_rope", "fused_attention": "fused_attention",
            "flash_bwd": "flash_bwd", "flash_plain": "flash_plain (K6)",
-           "dense_conv": "dense_conv (K4)", "depthwise_conv": "depthwise_conv (K5)"}
+           "dense_conv": "dense_conv (K4)", "depthwise_conv": "depthwise_conv (K5)",
+           "adaln_glue": "adaln_glue (K7)"}
     kernels = chip_smoke.csrc_kernels()
     assert set(kernels) == set(_build.sources()) == set(own)
     for src, names in kernels.items():
@@ -204,3 +209,50 @@ def test_kernels_match_plain_on_cuda(dtype):
         out, ref, chip_smoke.kernel_tolerance("fused_attention", dname, ref))
     assert rec["ok"], rec
     assert (fa.norm_rope.launches - n0, fa.fused_attention.launches - f0) == (1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", ["latent_1800", "cond_450", "joint_2250_1p6b",
+                                  "head_1800_of_2250", "ragged_13"])
+def test_glue_kernel_matches_plain_on_cuda(case, dtype, monkeypatch):
+    """K7's three entries against their plain versions at the DiT's shapes
+    (the 375M's latent and conditioning streams, the 1.6B's joint stream,
+    the head's strided view of the joint stream) and a ragged (3, 13, 256),
+    with chip_smoke.py's tolerances, one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import chip_smoke
+
+    peaks, _ = chip_smoke.card_peaks(torch.cuda.get_device_name(0))
+    dname = str(dtype).split(".")[-1]
+    case_row = next(c for c in chip_smoke.GLUE_CASES if c[0] == case)
+    monkeypatch.setattr(chip_smoke, "GLUE_CASES", [(*case_row[:5], False)])  # untimed
+    monkeypatch.setattr(chip_smoke, "emit", lambda rec: None)
+    recs = chip_smoke.glue_phase(peaks, (dname,))
+    assert len(recs) == 3 and all(r["ok"] and r["launches"] == 1 for r in recs), recs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["375m", "1p6b"])
+def test_dit_call_launches_glue_kernel_on_cuda(name):
+    """One bf16 DiT call under inference_mode launches K7 21 times at the
+    375M's block counts and 51 at the 1.6B's (6 a dual-stream block, 2 a
+    single-stream block, 1 at the head); with grad on, none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ladcast_torch.ops import adaln_glue as glue
+
+    cfg = getattr(config, f"ladcast_{name}_config")()
+    model = build_dit(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    lat = torch.randn(1, 1, 15, 30, cfg.in_channels, generator=g, device="cuda")
+    args = (lat.bfloat16(), torch.ones(1, device="cuda"), lat.bfloat16())
+    n0 = glue.launches()
+    with torch.inference_mode():
+        out = model(*args)
+    assert torch.isfinite(out).all()
+    assert glue.launches() - n0 == {"375m": 21, "1p6b": 51}[name]
+    n0 = glue.launches()
+    model(*args).float().square().mean().backward()
+    assert glue.launches() == n0
