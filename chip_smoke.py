@@ -648,7 +648,145 @@ def kernel_phase(peaks, dtypes=("bfloat16", "float32"), only=None):
             del q, k, v, kn, out, ref
         torch.cuda.empty_cache()
     results["adaln_glue"] = glue_phase(peaks, dtypes, only)
+    results["gelu_gemm"] = gelu_gemm_phase(peaks, only)
     return results
+
+
+# The up-projections with the tanh GELU in their GEMM's epilogue
+# (ops.gelu_gemm): name, M (B=20 x tokens), K, N. The dual-stream blocks'
+# ff (1800 latent tokens) and ff_context (450), the single-stream blocks'
+# proj_mlp (2250), at the 375M's and the 1.6B's widths.
+GELU_GEMM_CASES = [
+    ("ff_1800", 36000, 1536, 6144), ("ff_context_450", 9000, 1536, 6144),
+    ("proj_mlp_2250", 45000, 1536, 6144), ("ff_1800_1p6b", 36000, 2048, 8192),
+    ("ff_context_450_1p6b", 9000, 2048, 8192), ("proj_mlp_2250_1p6b", 45000, 2048, 8192)]
+# fp32: the epilogue against F.gelu(F.linear(..), approximate="tanh") with
+# TF32 off, relative L2; the erf GELU is 4.7e-4 away from the tanh one.
+GELU_GEMM_F32_REL_L2 = 1e-5
+
+
+def gelu_gemm_phase(peaks, only=None, blocks_batch=20, timed=True):
+    """The epilogue GEMM (``ops.gelu_gemm.dense_gelu_tanh``) at the
+    up-projections' shapes, every case of GELU_GEMM_CASES or those named in
+    ``only``: in fp32 against the plain version (within
+    GELU_GEMM_F32_REL_L2, and farther from the erf GELU), in bf16 against
+    the plain version and an fp32 reference; timed beside the GEMM alone
+    (``F.linear``) and the GEMM with its separate GELU pass
+    (``library_ms``). Then (the case ``blocks``) the 375M's single-stream
+    block and a dual-stream FeedForward at ``blocks_batch`` members under
+    torch.profiler: no ``CatArrayBatched`` and no separate GELU kernel."""
+    import torch
+    import torch.nn.functional as F
+
+    from ladcast_torch.ops import gelu_gemm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    peak_bf16, _, bw, _ = peaks
+    g = torch.Generator(device=dev).manual_seed(11)
+    recs = []
+    for name, M, K, N in (c for c in GELU_GEMM_CASES if only is None or c[0] in only):
+        x = torch.randn(M, K, generator=g, device=dev)
+        w = torch.randn(N, K, generator=g, device=dev) / K ** 0.5
+        b = 0.1 * torch.randn(N, generator=g, device=dev)
+        rec = {"phase": "kernel", "kernel": "gelu_gemm", "case": name,
+               "M": M, "K": K, "N": N}
+        with torch.inference_mode():
+            n0 = gelu_gemm.dense_gelu_tanh.launches
+            z = F.linear(x, w, b)
+            tanh_ref, erf_ref = F.gelu(z, approximate="tanh"), F.gelu(z)
+            got = gelu_gemm.dense_gelu_tanh(x, w, b)
+            f32 = compare(got, tanh_ref, {"atol": float("inf"), "rtol": 0.0,
+                                          "rel_l2": GELU_GEMM_F32_REL_L2})
+            f32["erf_rel_l2"] = compare(got, erf_ref, f32["tol"])["rel_l2"]
+            f32["ok"] = f32["ok"] and f32["erf_rel_l2"] > 10 * f32["rel_l2"]
+            del z, got, erf_ref
+            xb, wb, bb = x.bfloat16(), w.bfloat16(), b.bfloat16()
+            got = gelu_gemm.dense_gelu_tanh(xb, wb, bb)
+            plain = gelu_gemm.dense_gelu_tanh_plain(xb, wb, bb)
+            ref = F.gelu(F.linear(xb.float(), wb.float(), bb.float()), approximate="tanh")
+            bf16 = {"rel_l2_to_plain": compare(got, plain, f32["tol"])["rel_l2"],
+                    "rel_l2_to_fp32": compare(got, ref, f32["tol"])["rel_l2"],
+                    "plain_rel_l2_to_fp32": compare(plain, ref, f32["tol"])["rel_l2"]}
+            bf16["ok"] = bf16["rel_l2_to_fp32"] <= bf16["plain_rel_l2_to_fp32"]
+            rec.update(float32=f32, bfloat16=bf16,
+                       launches=gelu_gemm.dense_gelu_tanh.launches - n0,
+                       finite=bool(torch.isfinite(got).all()))
+            del plain, ref, tanh_ref
+            flops, nbytes = 2 * M * K * N, 2 * (M * K + K * N + M * N + N)
+            rec.update(bound(flops, nbytes, peak_bf16, bw))
+            if timed:
+                rec["ms"] = time_ms(lambda: gelu_gemm.dense_gelu_tanh(xb, wb, bb))
+                rec["gemm_alone_ms"] = time_ms(lambda: F.linear(xb, wb, bb))
+                rec["library_ms"] = time_ms(
+                    lambda: gelu_gemm.dense_gelu_tanh_plain(xb, wb, bb))
+                rec["library_op"] = "F.linear, then F.gelu(approximate='tanh')"
+                rec.update(rates(flops, rec))
+        emit(rec)
+        recs.append(rec)
+        if not (f32["ok"] and bf16["ok"] and rec["finite"] and rec["launches"] == 2):
+            raise AssertionError(f"gelu_gemm {name}: {rec}")
+        del x, w, b, xb, wb, bb, got
+        torch.cuda.empty_cache()
+    if only is None or "blocks" in only:
+        recs.append(dit_blocks_launch_check(blocks_batch))
+    return recs
+
+
+def dit_blocks_launch_check(batch):
+    """One bf16 single-stream block of the 375M (2,250 joint tokens, 450 of
+    them the conditioning's) and one dual-stream FeedForward (1,800 latent
+    tokens) at ``batch`` members under inference_mode and torch.profiler:
+    the kernels they launch, of which none may be a ``CatArrayBatched``
+    copy or a separate GELU pass, and at least one a GEMM."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ladcast_torch.config import ladcast_375m_config
+    from ladcast_torch.models import ladcast_dit as dit
+
+    dev = torch.device("cuda")
+    cfg = ladcast_375m_config()
+    D = cfg.inner_dim
+    with torch.device("meta"):
+        tables_of = dit.LaDCastTransformer3D(cfg)
+    rope = tables_of._rope_tables(4, 15, 30, False, dev)
+    cond_rope = tables_of._rope_tables(1, 15, 30, True, dev)
+    g = torch.Generator(device=dev).manual_seed(12)
+    single = dit.SingleStreamBlock(cfg.num_attention_heads, cfg.attention_head_dim,
+                                   cfg.mlp_ratio, "auto").to(dev)
+    ff = dit.FeedForward(D, cfg.mlp_ratio, dit._gelu_tanh).to(dev)
+    for m in (single, ff):
+        for p in m.parameters():
+            with torch.no_grad():
+                p.copy_(torch.randn(p.shape, generator=g, device=dev) * 0.02)
+        m.bfloat16()
+    h = torch.randn(batch, 2250, D, generator=g, device=dev).bfloat16()
+    temb = torch.randn(batch, D, generator=g, device=dev).bfloat16()
+    x = h[:, :1800].contiguous()
+    calls = {"single_block": lambda: single(h, 450, temb, rope, cond_rope),
+             "feed_forward": lambda: ff(x)}
+    rec = {"phase": "dit_blocks_launches", "B": batch, "dtype": "bfloat16"}
+    for name, call in calls.items():
+        with torch.inference_mode():
+            call()  # builds and warms the kernels
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                call()
+                torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        rec[name] = {
+            "kernels": len(names),
+            "gemms": sum(category(k) == "gemm" for k in names),
+            "cats": [k[:100] for k in names if "CatArrayBatched" in k],
+            "gelu_passes": [k[:100] for k in names
+                            if "elementwise" in k and "gelu" in k.lower()]}
+    emit(rec)
+    if any(r["cats"] or r["gelu_passes"] or not r["gemms"]
+           for r in (rec["single_block"], rec["feed_forward"])):
+        raise AssertionError(f"the DiT blocks' launches: {rec}")
+    return rec
 
 
 # K7's cases: name, B, S, D, the token count of the tensor x is a view of
@@ -670,6 +808,13 @@ def glue_per_dit_call(cfg):
     L, Ls = cfg.num_layers, cfg.num_single_layers
     return {"ln_modulate": 2 * L + Ls + 1, "gated_residual_ln_modulate": 2 * L,
             "gated_residual": 2 * L + Ls}
+
+
+def gelu_gemms_per_dit_call(cfg):
+    """The epilogue GEMMs (``ops.gelu_gemm``) per DiT call without grad:
+    each dual-stream block's ff and ff_context, each single-stream block's
+    proj_mlp."""
+    return {"dense_gelu_tanh": 2 * cfg.num_layers + cfg.num_single_layers}
 
 
 def glue_phase(peaks, dtypes=("bfloat16", "float32"), only=None):
@@ -1866,17 +2011,21 @@ def dit_1p6b_phase(tmp, latents):
 def plain_dit_call(plain, *args):
     """The DiT ``plain`` (attention_impl "plain") on ``args``, with grad on:
     its parameters require grad, so its blocks run the PyTorch expressions
-    in place of K7, the side without the kernels of a parity check.
-    Raises if K7 launched."""
+    in place of K7 and the up-projections' GEMM and GELU in two steps in
+    place of the epilogue GEMM, the side without the kernels of a parity
+    check. Raises if K7 or the epilogue GEMM launched."""
     import torch
 
     from ladcast_torch.ops import adaln_glue as glue
+    from ladcast_torch.ops import gelu_gemm
 
-    n0 = glue.launches()
+    n0, e0 = glue.launches(), gelu_gemm.dense_gelu_tanh.launches
     with torch.enable_grad():
         out = plain(*args).detach().float()
     if glue.launches() != n0:
         raise AssertionError("the plain DiT launched K7")
+    if gelu_gemm.dense_gelu_tanh.launches != e0:
+        raise AssertionError("the plain DiT ran the epilogue GEMM")
     return out
 
 
@@ -1886,6 +2035,7 @@ def model_parity_phase():
     from ladcast_torch.config import ladcast_375m_config
     from ladcast_torch.models.ladcast_dit import LaDCastTransformer3D, build_dit
     from ladcast_torch.ops import adaln_glue as glue
+    from ladcast_torch.ops import gelu_gemm
 
     dev = torch.device("cuda")
     cfg = ladcast_375m_config()
@@ -1902,18 +2052,23 @@ def model_parity_phase():
         plain.load_state_dict(kernels.state_dict(), strict=True, assign=True)
         plain.eval()
         args = (lat.to(dtype), cn, cond.to(dtype), yp)
-        n0 = glue.launches()
+        n0, e0 = glue.launches(), gelu_gemm.dense_gelu_tanh.launches
         with torch.inference_mode():
             a = kernels(*args).float()
         glue_launches = glue.launches() - n0
+        gelu_launches = gelu_gemm.dense_gelu_tanh.launches - e0
         p = plain_dit_call(plain, *args)
         rel = ((a - p).norm() / p.norm()).item()
         finite = bool(torch.isfinite(a).all())
         want = sum(glue_per_dit_call(cfg).values())
+        want_gelu = gelu_gemms_per_dit_call(cfg)["dense_gelu_tanh"]
         emit({"phase": "model_parity", "dtype": dname, "B": 2,
               "rel_l2": rel, "tol": MODEL_TOL[dname], "finite": finite,
-              "glue_launches": glue_launches, "expected_glue_launches": want})
-        if not (finite and rel <= MODEL_TOL[dname] and glue_launches == want):
+              "glue_launches": glue_launches, "expected_glue_launches": want,
+              "gelu_gemm_launches": gelu_launches,
+              "expected_gelu_gemm_launches": want_gelu})
+        if not (finite and rel <= MODEL_TOL[dname] and glue_launches == want
+                and gelu_launches == want_gelu):
             raise AssertionError(f"375M forward parity {dname}: {rel}")
         del kernels, plain, a, p
         torch.cuda.empty_cache()
@@ -1931,6 +2086,7 @@ def main_path_phase(reps):
     )
     from ladcast_torch.ops import adaln_glue as glue
     from ladcast_torch.ops import flash_attention as fa
+    from ladcast_torch.ops import gelu_gemm
 
     dev = torch.device("cuda")
     rcfg = RolloutConfig(ensemble_size=20, num_inference_steps=20,
@@ -1955,6 +2111,7 @@ def main_path_phase(reps):
     _reset_conv_launches()
     for entry in glue.ENTRIES:
         entry.launches = 0
+    gelu_gemm.dense_gelu_tanh.launches = 0
     torch.cuda.reset_peak_memory_stats()
     stats = {}
     t0 = time.perf_counter()
@@ -1962,14 +2119,17 @@ def main_path_phase(reps):
     total_s = time.perf_counter() - t0
     launches = {"norm_rope": fa.norm_rope.launches,
                 "fused_attention": fa.fused_attention.launches,
-                **_conv_launches(), "adaln_glue": glue.launches()}
+                **_conv_launches(), "adaln_glue": glue.launches(),
+                "dense_gelu_tanh": gelu_gemm.dense_gelu_tanh.launches}
     n_calls = (2 * rcfg.num_inference_steps - 1) * rcfg.num_repetitions
     n_attn = 7 * n_calls
     enc = sphere_conv_counts(bench["dcae"].encoder)
     dec = sphere_conv_counts(bench["dcae"].decoder)
     expected = {"norm_rope": n_attn, "fused_attention": n_attn,
                 **{k: enc[k] + rcfg.num_repetitions * dec[k] for k in enc},
-                "adaln_glue": n_calls * sum(glue_per_dit_call(ladcast_375m_config()).values())}
+                "adaln_glue": n_calls * sum(glue_per_dit_call(ladcast_375m_config()).values()),
+                "dense_gelu_tanh": n_calls * gelu_gemms_per_dit_call(
+                    ladcast_375m_config())["dense_gelu_tanh"]}
     # the decode of one repetition's 80 frames under both conv modes
     frames = torch.randn(80, 15, 30, 84, device=dev,
                          generator=torch.Generator(device=dev).manual_seed(1)
@@ -2088,7 +2248,9 @@ def bench_phase(tmp, bench, reps):
     dec = sphere_conv_counts(bench["dcae"].decoder)
     expected = {"norm_rope": 7 * 2 * 10, "fused_attention": 7 * 2 * 10,
                 **{k: enc[k] + 10 * dec[k] for k in enc},
-                **{k: n * 2 * 10 for k, n in glue_per_dit_call(ladcast_375m_config()).items()}}
+                **{k: n * 2 * 10 for k, n in glue_per_dit_call(ladcast_375m_config()).items()},
+                **{k: n * 2 * 10
+                   for k, n in gelu_gemms_per_dit_call(ladcast_375m_config()).items()}}
     dpm2 = RolloutConfig(sampler_type="dpm", num_inference_steps=2)
     rec = {"phase": "bench_cli_short", "card": card,
            "argv": ["--sampler", "dpm", "--nfe", "2", "--profile", "DIR",
@@ -2139,7 +2301,8 @@ def bench_phase(tmp, bench, reps):
     if (on_card.uncounted or rel > 1e-6 or on_card.total != comps[0]
             or {k: v["launches"] for k, v in on_card.kernels.items()}
             != {"norm_rope": 7, "fused_attention": 7,
-                **glue_per_dit_call(ladcast_375m_config())}
+                **glue_per_dit_call(ladcast_375m_config()),
+                **gelu_gemms_per_dit_call(ladcast_375m_config())}
             or on_card.kernels["norm_rope"]["flops"] != 0):
         raise AssertionError(f"the FLOP count of a DiT call: {rec}")
     results["flop_count"] = rec
@@ -2946,7 +3109,8 @@ def tooling_phase(tmp, forecast, device="cuda", dit_cfg=None, ray_cfg=None,
     rec = {"phase": "tooling_compile_report", "B": batch, "dtype": str(dt),
            "kernels_built_before": cuda, **report,
            "expected_kernel_launches": ({"norm_rope": 7, "fused_attention": 7,
-                                         **glue_per_dit_call(cfg)} if cuda else {})}
+                                         **glue_per_dit_call(cfg),
+                                         **gelu_gemms_per_dit_call(cfg)} if cuda else {})}
     emit(rec)
     if (set(report) != {"first_call_s", "steady_s", "flops", "kernels", "flops_complete",
                         "uncounted"}

@@ -7,7 +7,7 @@ single-stream DiT over latent frames):
   latent (B, T, 15, 30, 84) + conditioning latent (B, T_in, 15, 30, 84)
   -> 1x1x1 patch embeds -> conditioning token refiner
   -> N dual-stream blocks (separate QKV, joint attention)
-  -> M single-stream blocks (concatenated streams, parallel MLP)
+  -> M single-stream blocks (the joint [latent; cond] stream, parallel MLP)
   -> AdaLN-continuous head -> (B, T, 15, 30, 84)
 
 Quirks the weights depend on, kept as in the reference:
@@ -30,7 +30,17 @@ the single-stream blocks' q/k/v, ``proj_mlp`` and ``proj_out``; the
 refiner, the AdaLN linears, the embedders and the top-level projections
 stay in float. Where no input needs a gradient, the dual- and
 single-stream blocks' and the head's LayerNorms, modulations, gates and
-residual adds run as one pass per step (``ops.adaln_glue``, K7).
+residual adds run as one pass per step (``ops.adaln_glue``, K7), and on
+CUDA tensors the feed-forwards' and ``proj_mlp``'s tanh GELU runs in their
+GEMM's epilogue (``ops.gelu_gemm``).
+
+The single-stream blocks take and return the joint [latent; cond] stream
+whole: it is concatenated once, before the first of them, and the head
+reads its latent tokens as a view. ``proj_out`` reads the attention output
+and the MLP activation through the two column blocks of its weight, two
+GEMMs into one output, rather than one GEMM over their concatenation
+(the int8 path, which scales each concatenated row as one, keeps the
+concatenation).
 """
 
 from __future__ import annotations
@@ -58,6 +68,7 @@ from ladcast_torch.ops import adaln_glue as glue
 from ladcast_torch.ops import rope as rope_ops
 from ladcast_torch.ops.attention import norm_rope_attention
 from ladcast_torch.ops.embeddings import timestep_embedding, year_sincos_embedding
+from ladcast_torch.ops.gelu_gemm import dense_gelu_tanh
 from ladcast_torch.ops.norms import layer_norm
 from ladcast_torch.ops.quant import QuantizableDense
 from ladcast_torch.utils.profiling import span, spanned
@@ -107,6 +118,14 @@ class CombinedTimestepTextProj(nn.Module):
         return self.timestep_embedder(t.to(pooled.dtype)) + self.text_embedder(pooled)
 
 
+def _dense_gelu_tanh(proj: QuantizableDense, x):
+    """``gelu_tanh(proj(x))``: the GELU in the GEMM's epilogue where
+    ``ops.gelu_gemm`` takes it; an int8 ``proj`` keeps its own product."""
+    if proj.quant:
+        return _gelu_tanh(proj(x))
+    return dense_gelu_tanh(x, proj.weight, proj.bias)
+
+
 class _ProjAct(nn.Module):
     def __init__(self, dim: int, inner: int, act, quant: bool = False):
         super().__init__()
@@ -114,12 +133,15 @@ class _ProjAct(nn.Module):
         self.act = act
 
     def forward(self, x):
+        if self.act is _gelu_tanh:
+            return _dense_gelu_tanh(self.proj, x)
         return self.act(self.proj(x))
 
 
 class FeedForward(nn.Module):
     """diffusers FeedForward: ``net.0.proj`` -> act -> ``net.2``; both
-    projections int8 with ``quant``."""
+    projections int8 with ``quant``. The tanh GELU (``_gelu_tanh``) runs
+    in the up-projection's epilogue where it can."""
 
     def __init__(self, dim: int, mult: float, act, quant: bool = False):
         super().__init__()
@@ -421,19 +443,36 @@ class SingleStreamBlock(nn.Module):
         self.attn = ConcatStreamAttention(num_heads, head_dim, impl, int8)
         self.proj_out = QuantizableDense(dim + mlp_dim, dim, quant=int8)
 
+    def _proj_out(self, attn_out, mlp_h):
+        """``proj_out`` of [attn_out; mlp_h] along the features, without
+        their concatenation: the bias and the attention output's column
+        block of the weight in one GEMM, the MLP's block added into the
+        same output by a second (int8: the concatenation, one scale a
+        row)."""
+        p = self.proj_out
+        if p.quant:
+            return p(torch.cat([attn_out, mlp_h], dim=2))
+        d = attn_out.shape[-1]
+        dt = torch.promote_types(torch.promote_types(attn_out.dtype, p.weight.dtype),
+                                 p.bias.dtype)
+        w = p.weight.to(dt)
+        out = torch.addmm(p.bias.to(dt), attn_out.to(dt).flatten(0, 1),
+                          w[:, :d].t())
+        out = out.addmm_(mlp_h.to(dt).flatten(0, 1), w[:, d:].t())
+        return out.view(*attn_out.shape[:-1], -1)
+
     @spanned("dit.single_block")
-    def forward(self, x, cond, temb, rope_table, cond_rope_table,
+    def forward(self, h, n_cond, temb, rope_table, cond_rope_table,
                 attn_bias=None):
-        n_cond = cond.shape[1]
-        residual = torch.cat([x, cond], dim=1)
-        norm_h, gate = self.norm(residual, temb)
+        """``h`` the joint [latent; cond] stream (B, S, D), its last
+        ``n_cond`` tokens the conditioning's; returns the next joint
+        stream."""
+        norm_h, gate = self.norm(h, temb)
         with span("dit.mlp"):
-            mlp_h = _gelu_tanh(self.proj_mlp(norm_h))
+            mlp_h = _dense_gelu_tanh(self.proj_mlp, norm_h)
         attn_out = self.attn(norm_h, n_cond, rope_table, cond_rope_table,
                              attn_bias)
-        h = _gated_residual(residual,
-                            self.proj_out(torch.cat([attn_out, mlp_h], dim=2)), gate)
-        return h[:, :-n_cond], h[:, -n_cond:]
+        return _gated_residual(h, self._proj_out(attn_out, mlp_h), gate)
 
 
 # ---------------------------------------------------------------------------
@@ -569,14 +608,17 @@ class LaDCastTransformer3D(nn.Module):
             args = (x, cond, temb.to(latents.dtype), rope_table, pred_bias)
             x, cond = (_remat(block, *args) if remat and not isinstance(block, FSDPModule)
                        else block(*args))
+        # the single-stream blocks carry the joint stream whole
+        n_lat, n_cond = x.shape[1], cond.shape[1]
+        h = torch.cat([x, cond], dim=1)
         for block in self.single_transformer_blocks:
-            args = (x, cond, temb.to(latents.dtype), rope_table, cond_rope_table,
+            args = (h, n_cond, temb.to(latents.dtype), rope_table, cond_rope_table,
                     pred_bias)
-            x, cond = (_remat(block, *args) if remat and not isinstance(block, FSDPModule)
-                       else block(*args))
+            h = (_remat(block, *args) if remat and not isinstance(block, FSDPModule)
+                 else block(*args))
 
         scale, shift = self.norm_out(temb.to(latents.dtype)).chunk(2, dim=-1)
-        x = _ln_modulate(x, shift, scale, 1e-7)
+        x = _ln_modulate(h[:, :n_lat], shift, scale, 1e-7)
         x = self.proj_out(x)
         return x.reshape(B, T, H, W, cfg.out_channels)
 

@@ -357,8 +357,17 @@ def count_kernel(name: str, flops: int) -> None:
 
 def kernel_entries() -> Dict:
     """The port's kernel entry points by the names they report under; each
-    keeps a ``launches`` counter."""
-    from ladcast_torch.ops import adaln_glue, dense_conv, depthwise_conv, flash_attention, quant
+    keeps a ``launches`` counter. Beside the hand-written kernels, two
+    library calls that ``FlopCounterMode`` does not count: ``int8_mm`` and
+    the epilogue GEMM ``dense_gelu_tanh``."""
+    from ladcast_torch.ops import (
+        adaln_glue,
+        dense_conv,
+        depthwise_conv,
+        flash_attention,
+        gelu_gemm,
+        quant,
+    )
 
     return {"norm_rope": flash_attention.norm_rope,
             "fused_attention": flash_attention.fused_attention,
@@ -368,6 +377,7 @@ def kernel_entries() -> Dict:
             "dense_conv": dense_conv.dense_conv_forward,
             "depthwise_conv": depthwise_conv.depthwise_same_conv_forward,
             "int8_mm": quant.int8_mm,
+            "dense_gelu_tanh": gelu_gemm.dense_gelu_tanh,
             **{f.__name__: f for f in adaln_glue.ENTRIES}}
 
 

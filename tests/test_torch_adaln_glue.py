@@ -210,17 +210,16 @@ def _adaln_todays(norm, x, temb):
     return h, gate_msa, shift_mlp, scale_mlp, gate_mlp
 
 
-def _single_todays(blk, x, cond, temb, rope, cond_rope):
-    """SingleStreamBlock.forward as written before K7."""
-    n_cond = cond.shape[1]
-    residual = torch.cat([x, cond], dim=1)
+def _single_todays(blk, h, n_cond, temb, rope, cond_rope):
+    """SingleStreamBlock.forward's glue as written before K7, on the joint
+    stream and with the block's own ``proj_out``."""
+    residual = h
     shift, scale, gate = blk.norm.linear(torch.nn.functional.silu(temb)).chunk(3, dim=-1)
     norm_h = dit._modulate(layer_norm(residual, None, None, 1e-6), shift, scale)
     mlp_h = dit._gelu_tanh(blk.proj_mlp(norm_h))
     attn_out = blk.attn(norm_h, n_cond, rope, cond_rope)
-    h = gate[:, None] * blk.proj_out(torch.cat([attn_out, mlp_h], dim=2))
-    h = h + residual
-    return h[:, :-n_cond], h[:, -n_cond:]
+    h = gate[:, None] * blk._proj_out(attn_out, mlp_h)
+    return (h + residual,)
 
 
 def _blocks_and_inputs(seed=0):
@@ -246,10 +245,11 @@ def test_blocks_take_the_plain_versions_on_cpu_without_grad(monkeypatch):
     the old expressions and no launch is counted."""
     dual, single, (x, cond, temb), rope, cond_rope = _blocks_and_inputs()
     calls, before = _spy(monkeypatch), glue.launches()
+    h, n_cond = torch.cat([x, cond], dim=1), cond.shape[1]
     with torch.no_grad():
-        got = dual(x, cond, temb, rope) + single(x, cond, temb, rope, cond_rope)
+        got = dual(x, cond, temb, rope) + (single(h, n_cond, temb, rope, cond_rope),)
         want = (_dual_todays(dual, x, cond, temb, rope)
-                + _single_todays(single, x, cond, temb, rope, cond_rope))
+                + _single_todays(single, h, n_cond, temb, rope, cond_rope))
     assert calls == {"ln_modulate": 3, "gated_residual_ln_modulate": 2,
                      "gated_residual": 3}
     assert glue.launches() == before
@@ -262,13 +262,17 @@ def test_blocks_keep_todays_expressions_with_grad(monkeypatch):
     outputs and gradients, bit for bit, as the old expressions, and call no
     glue entry."""
     dual, single, (x, cond, temb), rope, cond_rope = _blocks_and_inputs(3)
+    h, n_cond = torch.cat([x, cond], dim=1), cond.shape[1]
     calls, before = _spy(monkeypatch), glue.launches()
-    for blk, todays, extra in ((dual, _dual_todays, ()),
-                               (single, _single_todays, (cond_rope,))):
+    for blk, todays, inputs, call in (
+            (dual, _dual_todays, (x, cond, temb), lambda f, x, c, t: f(x, c, t, rope)),
+            (single, _single_todays, (h, temb),
+             lambda f, h, t: f(h, n_cond, t, rope, cond_rope))):
         outs = []
         for fwd in (blk, lambda *a, _t=todays, _b=blk: _t(_b, *a)):
-            xs = [t.clone().requires_grad_(True) for t in (x, cond, temb)]
-            out = fwd(*xs, rope, *extra)
+            xs = [t.clone().requires_grad_(True) for t in inputs]
+            out = call(fwd, *xs)
+            out = out if isinstance(out, tuple) else (out,)
             loss = sum((o * (i + 1)).square().sum() for i, o in enumerate(out))
             grads = torch.autograd.grad(loss, xs + list(blk.parameters()))
             outs.append((out, grads))

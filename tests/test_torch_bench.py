@@ -41,6 +41,7 @@ from ladcast_torch.config import DCAEConfig, EDMSchedulerConfig, LaDCastDiTConfi
 from ladcast_torch.ops import dense_conv as t_dc
 from ladcast_torch.ops import depthwise_conv as t_dw
 from ladcast_torch.ops import flash_attention as t_fa
+from ladcast_torch.ops import gelu_gemm as t_gelu
 from ladcast_torch.ops import quant as t_quant
 from test_torch_parallel import SPAWN_TIMEOUT_S, _entry
 
@@ -211,6 +212,8 @@ def _kernel_cases(shape):
         ("depthwise_conv", lambda: t_dw.depthwise_same_conv_plain(x, dk, pads),
          t_dc.conv_flops(x, 1, kk, kk)),
         ("int8_mm", lambda: t_quant.int8_mm(a, b), 2 * a.shape[0] * cin * cout),
+        ("dense_gelu_tanh", lambda: t_gelu.dense_gelu_tanh_plain(x, wt[0, 0].t(), wt[0, 0, 0]),
+         t_gelu.gelu_gemm_flops(x[..., 0].numel(), cin, cout)),
     ]
 
 
@@ -232,6 +235,8 @@ def test_kernel_formula_is_the_plain_versions_count(kernel, shape):
     if kernel == "int8_mm":  # what the wrapper reports beside aten's count
         a, b = torch.zeros(40, 16, dtype=torch.int8), torch.zeros(16, 8, dtype=torch.int8)
         assert t_quant.int8_mm_flops(a, b) == 2 * 40 * 16 * 8
+    if kernel == "dense_gelu_tanh":  # likewise
+        assert t_gelu.gelu_gemm_flops(40, 16, 8) == 2 * 40 * 16 * 8
 
 
 # -- the trajectory over two ranks ----------------------------------------------

@@ -8,6 +8,7 @@ from pathlib import Path
 import pytest
 import torch
 
+import chip_smoke
 import ladcast_torch
 from ladcast_torch import config
 from ladcast_torch.bench import make_bench
@@ -256,3 +257,60 @@ def test_dit_call_launches_glue_kernel_on_cuda(name):
     n0 = glue.launches()
     model(*args).float().square().mean().backward()
     assert glue.launches() == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [c[0] for c in chip_smoke.GELU_GEMM_CASES])
+def test_gelu_gemm_epilogue_on_cuda(case, monkeypatch):
+    """The up-projection with its tanh GELU in the GEMM's epilogue at the
+    DiT's shapes: in fp32 within chip_smoke.GELU_GEMM_F32_REL_L2 of
+    F.gelu(F.linear(..), approximate="tanh") and far from the erf GELU, in
+    bf16 at least as close to an fp32 reference as the GEMM and GELU in two
+    passes; one counted launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import chip_smoke
+
+    peaks, _ = chip_smoke.card_peaks(torch.cuda.get_device_name(0))
+    monkeypatch.setattr(chip_smoke, "emit", lambda rec: None)
+    recs = chip_smoke.gelu_gemm_phase(peaks, (case,), timed=False)
+    assert len(recs) == 1 and recs[0]["launches"] == 2, recs
+
+
+@pytest.mark.cuda
+def test_dit_blocks_launch_no_cat_and_no_gelu_pass_on_cuda(monkeypatch):
+    """Under torch.profiler one bf16 single-stream block under
+    inference_mode launches no CatArrayBatched copy and no separate GELU
+    kernel, and a dual-stream FeedForward no separate GELU kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "emit", lambda rec: None)
+    rec = chip_smoke.dit_blocks_launch_check(2)
+    assert rec["single_block"]["gemms"] and rec["feed_forward"]["gemms"], rec
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["375m", "1p6b"])
+def test_dit_call_takes_the_gelu_epilogue_on_cuda(name):
+    """One bf16 DiT call under inference_mode runs its up-projections as
+    epilogue GEMMs, 8 at the 375M's block counts and 20 at the 1.6B's
+    (2 a dual-stream block, 1 a single-stream block); with grad on, none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ladcast_torch.ops import gelu_gemm
+
+    cfg = getattr(config, f"ladcast_{name}_config")()
+    model = build_dit(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    lat = torch.randn(1, 1, 15, 30, cfg.in_channels, generator=g, device="cuda")
+    args = (lat.bfloat16(), torch.ones(1, device="cuda"), lat.bfloat16())
+    n0 = gelu_gemm.dense_gelu_tanh.launches
+    with torch.inference_mode():
+        out = model(*args)
+    assert torch.isfinite(out).all()
+    assert gelu_gemm.dense_gelu_tanh.launches - n0 == {"375m": 8, "1p6b": 20}[name]
+    n0 = gelu_gemm.dense_gelu_tanh.launches
+    model(*args).float().square().mean().backward()
+    assert gelu_gemm.dense_gelu_tanh.launches == n0
