@@ -38,7 +38,8 @@ PyYAML.
      ptxas (a serialised wgmma); the split passes are reported only;
   2. kernels: each kernel against its plain PyTorch version on the card, in
      bf16 and fp32, at the main path's shapes (B=20, S=2250 dual- and
-     single-stream tables, S=450 refiner tables) and a ragged small case,
+     single-stream tables, S=450 refiner tables, and in bf16 the 1.6B's 16
+     heads at S=2250) and a ragged small case,
      with median times over 20 timed runs, the plain version's time, the
      roofline bound and, for the attention, the time of PyTorch's
      ``scaled_dot_product_attention`` on the pre-normed inputs (a
@@ -46,7 +47,10 @@ PyYAML.
      its output's relative L2 to the plain version, ``library_rel_l2``),
      its rate and the bound's share of its time; the fp32 K1's bound is
      its products as six bf16 plane products (``bound_passes`` 6), with the
-     CUDA cores' fp32 bound beside it (``cuda_core_bound_ms``);
+     CUDA cores' fp32 bound beside it (``cuda_core_bound_ms``); each K1
+     record (and K1-lse's, phase 5a) gives what its launch added to
+     ``fused_attention.chained_items``, which must be the persistent bf16
+     grid's items - blocks, and 0 in fp32;
      the plain flash attention (K6) follows at ``K6_CASES``, bf16 and fp32
      inputs: timed at (2, 2250 / 450, 12, 128), with its bound in
      tensor-core passes (``flash_plain_bound``), SDPA on fp32 copies (the
@@ -550,13 +554,32 @@ def time_ms(fn, rounds=20, inner=5, warmup=2):
     return statistics.median(s.elapsed_time(e) / inner for s, e in events)
 
 
+def chained_items(fa, before, dtype, B, S, H):
+    """{"chained_items", "chained_ok"} of one K1 launch: what it added to
+    ``fused_attention.chained_items`` (from ``before``), which is items -
+    blocks of the persistent grid for bf16 (``persistent_grid`` on the
+    card's SMs) and 0 for fp32, whose kernel is not persistent. A tree
+    from before the persistent K1 (``--fp32-ab``'s parent) has no count."""
+    import torch
+
+    if not hasattr(fa, "persistent_grid"):
+        return {"chained_items": None, "chained_ok": True}
+    got = fa.fused_attention.chained_items - before
+    want = 0
+    if dtype == torch.bfloat16:
+        items, blocks = fa.persistent_grid(
+            B, S, H, torch.cuda.get_device_properties(0).multi_processor_count)
+        want = items - blocks
+    return {"chained_items": got, "chained_ok": got == want}
+
+
 def kernel_phase(peaks, dtypes=("bfloat16", "float32"), only=None):
     """K2 and K1 against their plain versions at the main path's shapes, in
     ``dtypes``, at every case or those named in ``only``."""
     import torch
     import torch.nn.functional as F
 
-    from ladcast_torch.config import ladcast_375m_config
+    from ladcast_torch.config import ladcast_1p6b_config, ladcast_375m_config
     from ladcast_torch.models.ladcast_dit import (
         LaDCastTransformer3D,
         segment_tables,
@@ -576,16 +599,21 @@ def kernel_phase(peaks, dtypes=("bfloat16", "float32"), only=None):
     g = torch.Generator(device=dev).manual_seed(0)
     w_a = 1 + 0.1 * torch.randn(D, generator=g, device=dev)
     w_b = 1 + 0.1 * torch.randn(D, generator=g, device=dev)
-    cases = [  # name, B, table segments (q side, k side), timed
-        ("dual_2250", 20, [(1800, rope, w_a), (450, None, w_b)], True),
-        ("single_2250", 20, [(1800, rope, w_a), (450, cond_rope, w_a)], False),
-        ("refiner_450", 20, [(450, cond_rope, w_a)], True),
-        ("ragged_130", 2, [(110, rope, w_a), (20, None, w_b)], False),
+    H_1P6B = ladcast_1p6b_config().num_attention_heads
+    cases = [  # name, B, heads, table segments (q side, k side), timed, dtypes
+        ("dual_2250", 20, H, [(1800, rope, w_a), (450, None, w_b)], True, dtypes),
+        ("single_2250", 20, H, [(1800, rope, w_a), (450, cond_rope, w_a)], False, dtypes),
+        ("refiner_450", 20, H, [(450, cond_rope, w_a)], True, dtypes),
+        ("ragged_130", 2, H, [(110, rope, w_a), (20, None, w_b)], False, dtypes),
+        # the 1.6B's 16 heads at the forecast's batch
+        ("dual_2250_h16", 20, H_1P6B, [(1800, rope, w_a), (450, None, w_b)], True,
+         ("bfloat16",)),
     ]
     results = {"norm_rope": [], "fused_attention": []}
     for dtype in (getattr(torch, d) for d in dtypes):
         dname = str(dtype).split(".")[-1]
-        for name, B, segs, timed in (c for c in cases if only is None or c[0] in only):
+        for name, B, H, segs, timed, _ in (
+                c for c in cases if (only is None or c[0] in only) and dname in c[5]):
             S = sum(n for n, _, _ in segs)
             cos, sin, w = segment_tables(segs)
             q, k, v = (torch.randn(B, S, H, D, generator=g, device=dev).to(dtype)
@@ -612,12 +640,14 @@ def kernel_phase(peaks, dtypes=("bfloat16", "float32"), only=None):
                 raise AssertionError(f"norm_rope {name} {dname}: {rec}")
             # K1
             kn = ref
+            chained = getattr(fa.fused_attention, "chained_items", 0)
             out = fa.fused_attention(q, kn, v, cos, sin, w)
             ref = fa.fused_attention_plain(q, kn, v, cos, sin, w)
             rec = {"phase": "kernel", "kernel": "fused_attention", "case": name,
                    "dtype": dname, "B": B, "S": S, "H": H, "D": D,
                    **compare(out, ref, kernel_tolerance("fused_attention", dname, ref)),
-                   "finite": bool(torch.isfinite(out).all())}
+                   "finite": bool(torch.isfinite(out).all()),
+                   **chained_items(fa, chained, dtype, B, S, H)}
             flops = 4 * B * H * S * S * D
             nbytes = 4 * q.numel() * es + 3 * S * D * 4
             if dtype == torch.float32:  # products as six bf16 plane products
@@ -643,7 +673,7 @@ def kernel_phase(peaks, dtypes=("bfloat16", "float32"), only=None):
                 del qh, kh, vh
             emit(rec)
             results["fused_attention"].append(rec)
-            if not (rec["finite"] and rec["ok"]):
+            if not (rec["finite"] and rec["ok"] and rec["chained_ok"]):
                 raise AssertionError(f"fused_attention {name} {dname}: {rec}")
             del q, k, v, kn, out, ref
         torch.cuda.empty_cache()
@@ -1486,6 +1516,7 @@ def backward_kernel_phase(peaks, dtypes=("bfloat16", "float32"), only=None):
             qn = fa.norm_rope_plain(q, w, cos, sin)
             kn = fa.norm_rope_plain(k, w, cos, sin)
             # K1, lse variant: out with K1's tolerance, lse with fp32's
+            chained = getattr(fa.fused_attention, "chained_items", 0)
             out, lse = fa.fused_attention(q, kn, v, cos, sin, w, return_lse=True)
             ref, ref_lse = fa.fused_attention_plain(q, kn, v, cos, sin, w,
                                                     return_lse=True)
@@ -1494,6 +1525,7 @@ def backward_kernel_phase(peaks, dtypes=("bfloat16", "float32"), only=None):
                        "fused_attention_lse", dname, ref_lse)),
                    "out": compare(out, ref, kernel_tolerance(
                        "fused_attention", dname, ref)),
+                   **chained_items(fa, chained, dtype, B, S, H),
                    **bound_of(4 * B * H * S * S * D,
                               4 * n * es + 3 * S * D * 4 + stats_bytes)}
             if timed:
@@ -1513,7 +1545,7 @@ def backward_kernel_phase(peaks, dtypes=("bfloat16", "float32"), only=None):
                 del qh, kh, vh, lib_call
             emit(rec)
             results["fused_attention_lse"].append(rec)
-            if not (rec["ok"] and rec["out"]["ok"]):
+            if not (rec["ok"] and rec["out"]["ok"] and rec["chained_ok"]):
                 raise AssertionError(f"fused_attention lse {name} {dname}: {rec}")
             # K3 over the forward's statistics
             delta = torch.einsum("bqhd,bqhd->bhq", go.float(), ref.float()).contiguous()
@@ -4311,6 +4343,9 @@ def main():
             "traced_forecast": tooling["trace"]["launches"][kname],
             "compile_report_dit_call":
                 tooling["compile_report"]["kernels"][kname]["launches"]}
+        if kname == "fused_attention":  # S=450 and the 1.6B's 16 heads
+            e["timed_cases"] = timed_cases(
+                [r for r in results[kname] if r["dtype"] == "bfloat16"])
         summary.append(e)
     e = entry("fused_attention_lse", results["fused_attention_lse"],
               train_launches["fused_attention_lse"])

@@ -1,11 +1,11 @@
 // Hopper (sm_90a) building blocks of the tensor-core kernels: mbarriers,
-// TMA tile loads through a tensor map, bulk copies of contiguous bytes,
-// cp.async completion on an mbarrier, ldmatrix and 128-bit fp32 loads from a
-// shared address, wgmma shared-memory descriptors (128- and 64-byte
-// swizzles) and the bf16 products the kernels issue (the attention forward's
-// two m64n128k16 forms, the flash backward's m64n64k16 with both operands in
-// shared memory, the dense conv's m64nNk16 with A from registers for N = 96,
-// 128, 256), warpgroup register reallocation,
+// TMA tile loads and stores through a tensor map, bulk copies of contiguous
+// bytes, cp.async completion on an mbarrier, ldmatrix and 128-bit fp32
+// loads from a shared address, wgmma shared-memory descriptors (128- and
+// 64-byte swizzles) and the bf16 products the kernels issue (the attention
+// forward's two m64n128k16 forms, the flash backward's m64n64k16 with both
+// operands in shared memory, the dense conv's m64nNk16 with A from
+// registers for N = 96, 128, 256), warpgroup register reallocation,
 // named barriers and a one-instruction exp2. Users: the attention forward
 // (fused_attention.cu), the flash backward (flash_bwd.cu) and the dense
 // conv (dense_conv.cu).
@@ -75,6 +75,38 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// The box at coordinates (c0, c1, c2, c3) of a 4-D tensor map from shared
+// memory (written before by this CTA's threads, then fence_proxy_async and a
+// barrier); coordinates past the tensor's extent are not written. Tracked
+// by the issuing thread's bulk groups (bulk_commit, bulk_wait_read).
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src,
+                                             int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(src)), "r"(c0), "r"(c1),
+         "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Closes this thread's bulk group of the TMA stores issued since the last.
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's bulk groups still read shared
+// memory (their sources may then be written again).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+
+// Waits until at most N of this thread's bulk groups are incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // `bytes` (a multiple of 16) of contiguous global memory into shared

@@ -143,13 +143,32 @@ def fused_attention_plain(q, kn, v, qcos, qsin, qw, eps: float = 1e-7,
     return out
 
 
+ITEM_ROWS = 128  # Q rows of one item of the persistent bf16 K1
+
+
+def persistent_grid(B: int, Sq: int, H: int, sms: int):
+    """(items, blocks) of the bf16 K1: an item per (ITEM_ROWS-row Q tile,
+    b, head), numbered Q tile fastest, and min(items, sms) blocks; block i
+    walks items i, i + blocks, i + 2 blocks, ... So items - blocks of them
+    start on a block that has already run one."""
+    items = -(-Sq // ITEM_ROWS) * B * H
+    return items, min(items, sms)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    """The SMs of CUDA device ``index`` (cudaDevAttrMultiProcessorCount)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def fused_attention(q: torch.Tensor, kn: torch.Tensor, v: torch.Tensor,
                     qcos: torch.Tensor, qsin: torch.Tensor, qw: torch.Tensor,
                     eps: float = 1e-7, return_lse: bool = False):
     """Softmax attention of norm+RoPE(q) over the pre-normed keys ``kn``.
     q (B, Sq, H, D); kn, v (B, Sk, H, D); Q tables (Sq, D). With
     ``return_lse`` also the rows' logsumexp, (B, H, Sq) fp32 (the launch
-    is then also counted in ``lse_launches``)."""
+    is then also counted in ``lse_launches``). A bf16 launch adds its
+    items - blocks (:func:`persistent_grid`) to ``chained_items``."""
     if q.device.type == "cpu":
         return fused_attention_plain(q, kn, v, qcos, qsin, qw, eps, return_lse)
     B, Sq, H, D = q.shape
@@ -168,25 +187,29 @@ def fused_attention(q: torch.Tensor, kn: torch.Tensor, v: torch.Tensor,
         # fp32: the bf16 planes of the normed Q, kn and v (split_planes)
         planes = (_plane_scratch(B, H, D, (Sq, Sk, Sk), q.device)
                   if q.dtype == torch.float32 else None)
+        items, blocks = ((0, 0) if planes is not None else
+                         persistent_grid(B, Sq, H, _sm_count(q.device.index)))
         fn = _fn("fused_attention", "ladcast_fused_attention",
                  [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
-                 + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                 + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
                     ctypes.c_void_p])
         _launched("fused_attention", fn(
             q.data_ptr(), kn.data_ptr(), v.data_ptr(), qcos.data_ptr(),
             qsin.data_ptr(), qw.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(),
             None if planes is None else planes.data_ptr(), B, Sq, Sk, H,
-            eps, 1.0 / (D ** 0.5), _DTYPE_CODES[q.dtype],
+            eps, 1.0 / (D ** 0.5), _DTYPE_CODES[q.dtype], blocks,
             torch.cuda.current_stream(q.device).cuda_stream))
         fused_attention.launches += 1
         fused_attention.lse_launches += return_lse
+        fused_attention.chained_items += items - blocks
         count_kernel("fused_attention", attention_flops(q, kn, 2))
     return (out, lse) if return_lse else out
 
 
 fused_attention.launches = 0
 fused_attention.lse_launches = 0
+fused_attention.chained_items = 0
 
 
 # --------------------------------------------------------------- K3 -------

@@ -178,56 +178,92 @@ def _kernel_constant(name):
     return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
 
 
-def _tiled_attention(qs, kn, v, fault=None):
-    """The CUDA kernel's loop over key tiles of BN keys, emulated in fp32
-    with P cast to bf16 before P.V, with an optional fault injected. The
-    tiles come through a ring of kStages slots, as TMA fills them: rows
-    past Sk are zero and keys >= Sk are masked."""
+def _walk(items, blocks):
+    """The items each block of the persistent K1 takes, in its order: block
+    i runs items i, i + blocks, i + 2 blocks, ... (the kernel's loop over
+    ``item += gridDim.x``)."""
+    return [range(i, items, blocks) for i in range(blocks)]
+
+
+def _persistent_attention(qs, kn, v, fault=None, sms=5):
+    """The CUDA kernel emulated in fp32, P cast to bf16 before P.V, with an
+    optional fault injected. The blocks of its persistent grid (for a card of
+    ``sms`` SMs) walk their (Q tile, b, head) items, each an online softmax
+    over key tiles of BN keys. As in the kernel, the ring's kStages slots and
+    the staged Q tile carry from one item to the next: the producer fills
+    slot ``it % kStages`` with the walk's ``it``-th tile (rows past Sk zero,
+    keys >= Sk masked) and stages each item's Q tile (rows past Sq zero)."""
     tile, stages = _kernel_constant("BN"), _kernel_constant("kStages")
-    B, Sk, H, D = kn.shape
-    q = qs.float().transpose(1, 2)
+    B, Sq, H, D = qs.shape
+    Sk = kn.shape[1]
     n = -(-Sk // tile)
     pad = n * tile - Sk
-    kp = torch.cat([kn.float(), torch.zeros(B, pad, H, D)], 1).transpose(1, 2)
+    kp = torch.cat([kn.float(), torch.zeros(B, pad, H, D)], 1)
     vtail = (torch.randn(B, pad, H, D).bfloat16().float()
              if fault == "unmasked_tail_garbage_v" else torch.zeros(B, pad, H, D))
-    vp = torch.cat([v.float(), vtail], 1).transpose(1, 2)
-    m = torch.full(q.shape[:-1] + (1,), -1e30)
-    l = torch.zeros_like(m)
-    acc = torch.zeros_like(q)
-    for t in range(n):
-        if fault == "drop_tile" and t == 17:
-            continue
-        # a consumer that does not wait on its stage's "full" barrier reads
-        # what the slot held kStages tiles before
-        src = t - stages if fault == "stale_stage" and t >= 9 else t
-        kt = kp[:, :, src * tile:(src + 1) * tile]
-        vt = vp[:, :, src * tile:(src + 1) * tile]
-        s = q @ kt.transpose(-1, -2)
-        if fault not in ("unmasked_tail_zero_v", "unmasked_tail_garbage_v"):
-            s[..., Sk - t * tile:] = -1e30
-        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-        alpha = torch.exp(m - m_new)
-        p = torch.exp(s - m_new)
-        l = l * alpha + p.sum(-1, keepdim=True)
-        if not (fault == "stale_rescale" and t == 5):
-            acc = acc * alpha
-        acc = acc + p.bfloat16().float() @ vt
-        m = m_new
-    return (acc / l).transpose(1, 2).bfloat16()
+    vp = torch.cat([v.float(), vtail], 1)
+    n_qt = -(-Sq // t_fa.ITEM_ROWS)
+    qp = torch.cat([qs.float(), torch.zeros(B, n_qt * t_fa.ITEM_ROWS - Sq, H, D)], 1)
+    out = torch.empty(B, Sq, H, D, dtype=torch.bfloat16)
+    items, blocks = t_fa.persistent_grid(B, Sq, H, sms)
+    for walk in _walk(items, blocks):
+        ring, it = [None] * stages, 0
+        for j, item in enumerate(walk):
+            q0 = item % n_qt * t_fa.ITEM_ROWS
+            b, h = divmod(item // n_qt, H)
+            # an item that does not wait for its staged Q reads the last one
+            if not (fault == "stale_q_at_item" and j > 0):
+                q = qp[b, q0:q0 + t_fa.ITEM_ROWS, h]
+            if not (fault == "state_not_reset" and j > 0):
+                m = torch.full((t_fa.ITEM_ROWS, 1), -1e30)
+                l = torch.zeros_like(m)
+                acc = torch.zeros_like(q)
+            for t in range(n):
+                slot = it % stages
+                # a consumer that does not wait on its stage's "full" barrier
+                # reads what the slot held kStages tiles before
+                stale = fault == "stale_stage" and t >= 9
+                if stale:
+                    kt, vt = ring[slot]
+                ring[slot] = (kp[b, t * tile:(t + 1) * tile, h],
+                              vp[b, t * tile:(t + 1) * tile, h])
+                if not stale:
+                    kt, vt = ring[slot]
+                # an item's first tile read from the slot the last item's
+                # last tile filled
+                if fault == "stale_stage_at_item" and j > 0 and t == 0:
+                    kt, vt = ring[(it - 1) % stages]
+                it += 1
+                if fault == "drop_tile" and t == 17:
+                    continue
+                s = q @ kt.T
+                if fault not in ("unmasked_tail_zero_v", "unmasked_tail_garbage_v"):
+                    s[:, Sk - t * tile:] = -1e30
+                m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+                alpha = torch.exp(m - m_new)
+                p = torch.exp(s - m_new)
+                l = l * alpha + p.sum(-1, keepdim=True)
+                if not (fault == "stale_rescale" and t == 5):
+                    acc = acc * alpha
+                acc = acc + p.bfloat16().float() @ vt
+                m = m_new
+            out[b, q0:q0 + t_fa.ITEM_ROWS, h] = (acc / l)[:Sq - q0].bfloat16()
+    return out
 
 
 @pytest.mark.parametrize("fault", [None, "drop_tile", "unmasked_tail_zero_v",
                                    "unmasked_tail_garbage_v", "stale_rescale",
-                                   "stale_stage"])
+                                   "stale_stage", "stale_q_at_item",
+                                   "state_not_reset", "stale_stage_at_item"])
 def test_smoke_attention_bf16_check_catches_faults(fault):
     """chip_smoke.py's bf16 check of the attention kernel, at the main
     path's Sk=2250 (a ragged last tile of 74 keys and 54 padded ones): it
-    passes a faithful emulation of the kernel's tile loop and fails each
-    injected fault."""
+    passes a faithful emulation of the persistent kernel's walk (7 or 8
+    items a block) and fails each injected fault."""
     import chip_smoke
 
     assert (_kernel_constant("BN"), _kernel_constant("kStages")) == (128, 2)
+    assert 2 * _kernel_constant("WM") == t_fa.ITEM_ROWS
     torch.manual_seed(0)
     S, H, D = 2250, 2, 128
     q, k, v = (torch.randn(1, S, H, D).bfloat16() for _ in range(3))
@@ -236,7 +272,31 @@ def test_smoke_attention_bf16_check_catches_faults(fault):
     kn = t_fa.norm_rope_plain(k, w, cos, sin)
     ref = t_fa.fused_attention_plain(q, kn, v, cos, sin, w)
     qs = (t_fa._norm_rope_f32(q, w, cos, sin, 1e-7) / D ** 0.5).bfloat16()
-    out = _tiled_attention(qs, kn, v, fault)
+    out = _persistent_attention(qs, kn, v, fault)
     rec = chip_smoke.compare(
         out, ref, chip_smoke.kernel_tolerance("fused_attention", "bfloat16", ref))
     assert rec["ok"] == (fault is None), rec
+
+
+@pytest.mark.parametrize("B,Sq,H,sms,chained", [
+    (2, 130, 12, 132, 0),          # 48 items, fewer than the SMs
+    (1, 1536, 11, 132, 0),         # 132 items, as many as the SMs
+    (4, 450, 12, 132, 60),         # 192 items (K1-lse at the refiner's S)
+    (20, 2250, 12, 132, 4188),     # 4,320 items (the main path)
+    (20, 2250, 16, 131, 5629),     # 5,760 items on 131 SMs
+])
+def test_persistent_grid_walks_every_item_once(B, Sq, H, sms, chained):
+    """The bf16 K1's grid is min(items, SMs) blocks; their walks take every
+    (Q tile, b, head) item exactly once, and items - blocks of them start on
+    a block that has already run one (what ``chained_items`` adds)."""
+    items, blocks = t_fa.persistent_grid(B, Sq, H, sms)
+    n_qt = -(-Sq // t_fa.ITEM_ROWS)
+    assert items == n_qt * B * H and blocks == min(items, sms)
+    walks = _walk(items, blocks)
+    assert sorted(i for w in walks for i in w) == list(range(items))
+    assert all(len(w) >= 1 for w in walks)
+    assert sum(len(w) - 1 for w in walks) == items - blocks == chained
+    # the kernel's decode of an item: Q tile fastest, then head, then batch
+    decoded = {(i % n_qt, i // n_qt // H, i // n_qt % H) for i in range(items)}
+    assert decoded == {(t, b, h) for t in range(n_qt) for b in range(B)
+                       for h in range(H)}
